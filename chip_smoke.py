@@ -4,26 +4,46 @@
     python3 chip_smoke.py
 
 Phases, one JSON line each (any failure ends the run with exit code 1):
-  build   compile both CUDA kernels from gaussianrpg_tpu_torch/csrc (one
-          nvcc per source, in parallel) into build/kernels;
+  build   compile the three CUDA kernels from gaussianrpg_tpu_torch/csrc
+          (one nvcc per source, in parallel) into build/kernels;
   kernel  hold each kernel against its plain PyTorch version on the card
-          at the main path's shapes: the blend forward on the frozen bench
-          scene's pair lists (600k Gaussians, 1066x1600) at 64x32 and 16x16
-          tiles with S=0 and S=3; the fused cummax at the 16x16 capacity with
-          k=1 and k=2. Prints the error, tolerance, kernel / plain /
-          library times (CUDA events) and the bound;
+          at the main path's shapes: the blend forward (kernel B) and the
+          blend backward (kernel C, on kernel B's planes, against the plain
+          backward on the plain forward's, with a seeded random cotangent)
+          on the frozen bench scene's pair lists (600k Gaussians,
+          1066x1600) at 64x32 and 16x16 tiles with S=0 and S=3; the fused
+          cummax (kernel A) at the 16x16 capacity with k=1 and k=2. Prints
+          the errors, tolerance, kernel / plain / library times (CUDA
+          events) and the bound;
   small   one small frame on the card against the same frame through the
           port's CPU path (the plain versions the CPU tests hold against
           the JAX package);
+  small_train  a small composite scene's train-mode render and loss on
+          the card against the port's CPU path (gradients of the
+          background's parameters and the two hooks), and derive-gm
+          against ridden-gm gradients on the card, bit for bit;
   frame   one frozen-scene frame through `rasterize` at 64x32 (emission
           binning) and 16x16 (marker binning), each with two kernel A
           fills and one kernel B launch; per-frame ms, pair counts, launch
           counts;
+  train_frame  the bench train step (`rasterize` with both hooks, loss
+          sum(color^2) + sum(depth^2)) on the frozen scene at both tilings:
+          step ms, launches of kernels A, B and C, the pair-gather
+          segment sum's error against float64, peak memory;
   loop    the closed loop (`apps.simulate` synthetic setup at 600k
           background Gaussians, 1066x1600, 16x16 tiles) for 3.5 s of
-          simulation: verdict, frames, median frame ms, AEB braking.
+          simulation: verdict, frames, median frame ms, AEB braking;
+  train   the trainer (`apps.train.run_training`) on the synthetic scene
+          at 600k background Gaussians + 2 actors, 1066x1600, 16x16: 60
+          steps with one densify-and-prune event; the L1 of the trainer's
+          four evaluation views must fall before the event and after it;
+          then one opacity reset (losses, evaluations, median step ms,
+          active counts, retries, launches, peak memory), and `python -m
+          gaussianrpg_tpu_torch.apps.train --synthetic --iterations 30`
+          in a subprocess.
 The line before the last is the kernel table ({"kernels": [...]}, launch
-counts from the closed-loop run); the last line is the device verdict.
+counts summed over the closed loop, train_frame and train runs, each
+counted from zero); the last line is the device verdict.
 Needs CUDA: without it (or without the package beside it) the script
 exits non-zero and prints no verdict.
 """
@@ -43,6 +63,18 @@ RTOL, ATOL, ATOL_DEPTH = 1e-4, 1e-5, 1e-4
 # sequential product than under the plain version's cumulative product;
 # at most this share of pixels may differ beyond the tolerance
 MAX_FLIP_SHARE = 1e-5
+# gradients: relative to the max of each compared quantity (the JAX
+# package's tolerance for its own blend backward, tests/test_pallas.py)
+GRAD_RTOL = 5e-5
+# Scales, rotations and means sit behind the inverse of the 2D covariance,
+# which amplifies float32 rounding several hundredfold on the scene of
+# phase `small_train`. There the card's geometry gradients differ from the
+# CPU's by up to 1.2e-3 of their max, and moving every input by one
+# float32 ulp on the CPU moves them by up to 1.6e-3 (printed as
+# `rel_err_one_ulp_cpu`). A card step whose kernel C halves the
+# off-diagonal conic gradient (`control`) must fail this limit.
+GEOM_RTOL = 5e-3
+ULP_SEEDS = 4   # one-ulp input draws that measure that amplification
 
 
 def emit(obj):
@@ -101,6 +133,66 @@ def compare_planes(torch, kern, plain, written, s_ch):
     return float((k - p).abs().max()), outliers, k.shape[0] * k.shape[2]
 
 
+def grad_groups(s_ch):
+    """Kernel C's gradient columns (gdata's layout) by quantity."""
+    groups = [("mean2d", [0, 1]), ("conic", [2, 3, 4]), ("opacity", [5]),
+              ("rgb", [6, 7, 8]), ("depth", [9]), ("absgrad", [10])]
+    if s_ch:
+        groups.append(("semantics", list(range(11, 11 + s_ch))))
+    return groups
+
+
+def rel_err(torch, got, ref):
+    """max |got - ref| over max |ref| (0 where ref is all zero)."""
+    scale = float(ref.abs().max())
+    return float((got - ref).abs().max()) / scale if scale else 0.0
+
+
+def check_blend_bwd(torch, blend, gdata, lists, bg, kern, plain, live, kw,
+                    W, H, raw, written, seed):
+    """Kernel C on kernel B's planes against the plain backward on the
+    plain forward's planes (each backward replays its own forward), with
+    one seeded random cotangent of the planes."""
+    gen = torch.Generator(device=gdata.device).manual_seed(seed)
+    dout = torch.randn(kern.shape, generator=gen, device=gdata.device)
+    cm = lists.chunk_meta
+    bkw = dict(kw, stat_width=W, stat_height=H)
+
+    def run_kernel():
+        return blend.blend_backward(gdata, cm, bg, kern, dout, **bkw)
+
+    def run_plain():
+        return blend.blend_backward_plain(gdata, cm, bg, plain, dout, **bkw)
+
+    got = run_kernel()
+    torch.cuda.synchronize()
+    ref = run_plain()
+    s_ch = kw["s_ch"]
+    errs = {name: rel_err(torch, got[:, cols], ref[:, cols])
+            for name, cols in grad_groups(s_ch)}
+    rest_zero = not bool(got[:, 11 + s_ch:].any()) and not bool(
+        got[~lists.pair_valid].any())
+    ms = cuda_ms(torch, run_kernel, reps=5)
+    plain_ms = cuda_ms(torch, run_plain, reps=1, warmup=0)
+    nf = gdata.shape[1]
+    n_pix = kw["tx"] * kw["ty"]
+    nbytes = (raw * nf * 4 + cm.numel() * 4
+              + 2 * written * (5 + s_ch) * n_pix * 4
+              + gdata.shape[0] * nf * 4)
+    b_ms, b_by = bound(nbytes, live * (21 + 45 + 4 * s_ch))
+    ok = rest_zero and max(errs.values()) <= GRAD_RTOL
+    rec = dict(phase="kernel", kernel="blend_bwd",
+               tile=f"{kw['tx']}x{kw['ty']}", s_ch=s_ch, pairs=raw,
+               capacity=gdata.shape[0], live_pair_pixels=live,
+               rel_err=errs, max_abs_err=float((got - ref).abs().max()),
+               tolerance=f"{GRAD_RTOL} of each column group's max",
+               other_columns_zero=rest_zero, ms=ms, plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=b_by, library_ms=None, ok=ok)
+    emit(rec)
+    check(ok, "kernel", f"blend_bwd {rec['tile']} S={s_ch} disagrees")
+    return rec
+
+
 def phase_kernels(torch):
     """Kernels vs plain versions on the frozen scene."""
     import numpy as np
@@ -118,7 +210,7 @@ def phase_kernels(torch):
     sem = torch.as_tensor(np.random.default_rng(1).uniform(
         0, 1, (n, 3)).astype(np.float32), device=dev)
     bg = torch.tensor([0.1, 0.2, 0.3], device=dev)
-    out = {"blend_fwd": {}, "cummax": {}, "sizes": {}}
+    out = {"blend_fwd": {}, "blend_bwd": {}, "cummax": {}, "sizes": {}}
     for tx, ty in ((64, 32), (16, 16)):
         for s_ch in (0, 3):
             fs = primitive_fields(
@@ -167,6 +259,9 @@ def phase_kernels(torch):
             emit(rec)
             check(ok, "kernel", f"blend_fwd {tx}x{ty} S={s_ch} disagrees")
             out["blend_fwd"][(tx, ty, s_ch)] = rec
+            out["blend_bwd"][(tx, ty, s_ch)] = check_blend_bwd(
+                torch, blend, gdata, lists, bg, kern, plain, live, kw,
+                W, H, raw, written, seed=10 * tx + s_ch)
             del gdata, lists, kern, plain, fs
             torch.cuda.empty_cache()
 
@@ -207,16 +302,15 @@ def phase_kernels(torch):
     return out
 
 
-def phase_small(torch):
-    """A small frame (random Gaussians, 128x96) on the card vs the same
-    frame through the port's CPU path."""
+SMALL_W, SMALL_H = 128, 96
+
+
+def small_gaussians():
+    """2000 seeded random Gaussians in front of the small camera (numpy)."""
     import numpy as np
 
-    from gaussianrpg_tpu_torch.ops.rasterize import rasterize
-    from gaussianrpg_tpu_torch.render.camera import make_camera
-
     rng = np.random.default_rng(3)
-    n, W, H = 2000, 128, 96
+    n = 2000
     means = np.stack([rng.uniform(-3, 3, n), rng.uniform(-2, 2, n),
                       rng.uniform(1, 8, n)], -1).astype(np.float32)
     host = dict(
@@ -228,15 +322,32 @@ def phase_small(torch):
         semantics=rng.uniform(0, 1, (n, 5)).astype(np.float32))
     host["rotations"] /= np.linalg.norm(host["rotations"], axis=-1,
                                         keepdims=True)
+    return host
+
+
+def small_camera(device):
+    import numpy as np
+
+    from gaussianrpg_tpu_torch.render.camera import make_camera
+
     fovx = math.radians(60.0)
-    fovy = 2 * math.atan(math.tan(fovx / 2) * H / W)
+    fovy = 2 * math.atan(math.tan(fovx / 2) * SMALL_H / SMALL_W)
+    return make_camera(R=np.eye(3), T=np.zeros(3), K=None, width=SMALL_W,
+                       height=SMALL_H, fovx=fovx, fovy=fovy, device=device)
+
+
+def phase_small(torch):
+    """A small frame (random Gaussians, 128x96) on the card vs the same
+    frame through the port's CPU path."""
+    from gaussianrpg_tpu_torch.ops.rasterize import rasterize
+
+    host = small_gaussians()
     rec = {}
     for tx, ty in ((16, 16), (64, 32)):
         out = {}
         for d in ("cpu", "cuda"):
             t = {k: torch.as_tensor(v, device=d) for k, v in host.items()}
-            cam = make_camera(R=np.eye(3), T=np.zeros(3), K=None, width=W,
-                              height=H, fovx=fovx, fovy=fovy, device=d)
+            cam = small_camera(d)
             out[d] = rasterize(
                 t.pop("means3d"), t.pop("opacities"), camera=cam,
                 bg_color=torch.tensor([0.1, 0.2, 0.3], device=d),
@@ -253,6 +364,156 @@ def phase_small(torch):
         check(outliers <= max(1, int(MAX_FLIP_SHARE * pixels)), "small",
               f"CPU and CUDA frames differ at {tx}x{ty}")
     emit(dict(phase="small", checks=rec, ok=True))
+
+
+def to_device(torch, tree, device):
+    from gaussianrpg_tpu_torch.utils.tree import tree_map
+
+    return tree_map(lambda x: x.to(device) if torch.is_tensor(x) else x,
+                    tree)
+
+
+def phase_small_train(torch):
+    """The train-mode render and the trainer's loss on a small composite
+    scene (2 actors, sky, colour correction, 3 semantic classes) on the
+    card against the same through the port's CPU path: gradients of the
+    background's means, opacity, colours, scales and rotations and of the
+    two hooks, each within its fixed tolerance, which a card step with a
+    deliberately wrong conic gradient must fail. Then derive-gm against
+    ridden-gm gradients on the card, bit for bit."""
+    import numpy as np
+
+    from gaussianrpg_tpu_torch.models.scene_graph import total_capacity
+    from gaussianrpg_tpu_torch.ops import binning, blend
+    from gaussianrpg_tpu_torch.ops import rasterize as R
+    from gaussianrpg_tpu_torch.render.renderer import (RenderOptions,
+                                                       render_scene)
+    from gaussianrpg_tpu_torch.train import trainer as T
+    from gaussianrpg_tpu_torch.utils.synthetic import make_cameras, make_scene
+
+    W, H = 160, 96
+    host_scene = make_scene(
+        n_background=3000, bkgd_capacity=4096, n_actors=2,
+        actor_capacity=512, num_classes=3, include_sky=True,
+        use_color_correction=True, device="cpu")
+    rng = np.random.default_rng(5)
+    models, meta, arrays = host_scene
+    bk = models.background
+    # anisotropic scales, so that the rotations have gradients
+    host_scene = (models.replace(background=bk.replace(
+        scaling=bk.scaling + torch.as_tensor(rng.normal(
+            0, 0.3, tuple(bk.scaling.shape)).astype(np.float32)))),
+        meta, arrays)
+    gt = rng.uniform(0, 1, (3, H, W)).astype(np.float32)
+    opts = RenderOptions(capacity=1 << 16)
+    names = ["xyz", "opacity", "features_dc", "scaling", "rotation",
+             "means2d_offset", "absgrad_sink"]
+    grads, losses = {}, {}
+    bwd = blend.blend_backward
+
+    def halve_off_diagonal(*args, **kw):
+        g = bwd(*args, **kw)
+        g[:, blend.F_CB] *= 0.5
+        return g
+
+    def train_grads(d, ulp_seed):
+        models, meta, arrays = (to_device(torch, t, d) for t in host_scene)
+        cam = make_cameras(n_frames=4, width=W, height=H, device=d)[1]
+        bk = models.background
+        leaves = [getattr(bk, k).detach().clone() for k in names[:5]]
+        if ulp_seed is not None:
+            gen = torch.Generator().manual_seed(ulp_seed)
+            leaves = [x * (1 + (torch.randint(0, 2, x.shape, generator=gen)
+                                * 2 - 1) * 2.0 ** -23) for x in leaves]
+        leaves = [x.requires_grad_(True) for x in leaves]
+        models = models.replace(background=bk.replace(
+            **dict(zip(names[:5], leaves))))
+        n = total_capacity(models)
+        hooks = [torch.zeros((n, 2), device=d, requires_grad=True),
+                 torch.zeros((n,), device=d, requires_grad=True)]
+        res = render_scene(models, meta, arrays, cam, active_sh_degree=1,
+                           options=opts, train_mode=True,
+                           means2d_offset=hooks[0], absgrad_sink=hooks[1],
+                           device=d)
+        check(not bool(res.overflow), "small_train", f"overflow on {d}")
+        loss, _ = T.compute_losses(
+            res, T.Batch(gt_image=torch.as_tensor(gt, device=d)), models,
+            meta, T.OptimConfig(), res.visibility, None, camera=cam)
+        return ([g.cpu() for g in torch.autograd.grad(loss, leaves + hooks)],
+                float(loss.detach()))
+
+    # the CPU path, the card, and the CPU path with every learnable moved
+    # by one float32 ulp (ULP_SEEDS draws)
+    for run, d, ulp_seed in [("cpu", "cpu", None), ("cuda", "cuda", None)] + [
+            (f"cpu_ulp{s}", "cpu", s) for s in range(1, ULP_SEEDS + 1)]:
+        grads[run], losses[run] = train_grads(d, ulp_seed)
+    # the card with a wrong conic gradient
+    blend.blend_backward = halve_off_diagonal
+    try:
+        grads["control"], losses["control"] = train_grads("cuda", None)
+    finally:
+        blend.blend_backward = bwd
+
+    def errs_between(a, b):
+        return {k: rel_err(torch, x, y)
+                for k, x, y in zip(names, grads[a], grads[b])}
+
+    errs = errs_between("cuda", "cpu")
+    control = errs_between("control", "cpu")
+    # how far each gradient moves when its inputs move by one float32 ulp
+    # (discrete events on a few Gaussians, so the largest of several
+    # draws): the scale of the card's other roundings (FMA contraction,
+    # kernel C's sums)
+    moved = [errs_between(f"cpu_ulp{s}", "cpu")
+             for s in range(1, ULP_SEEDS + 1)]
+    ulp = {k: max(m[k] for m in moved) for k in names}
+    tols = {k: GEOM_RTOL if k in ("xyz", "scaling", "rotation")
+            else GRAD_RTOL for k in names}
+    agree = {k: errs[k] <= tols[k] for k in names}
+    control_fails = all(control[k] > tols[k] for k in ("scaling", "rotation"))
+    finite = all(bool(torch.isfinite(g).all()) for g in grads["cuda"])
+
+    # derive-gm vs ridden gm on the card (emission path, no semantics so
+    # the three packed columns fit)
+    host = small_gaussians()
+    host.pop("semantics")
+    dev = torch.device("cuda")
+    cam = small_camera(dev)
+    check(binning.emit_active(host["means3d"].shape[0], 8 * 6),
+          "small_train", "derive check needs the emission path")
+    by_mode = {}
+    saved = R.DERIVE_GM
+    try:
+        for derive in (True, False):
+            R.DERIVE_GM = derive
+            t = {k: torch.as_tensor(v, device=dev).requires_grad_(True)
+                 for k, v in host.items()}
+            n = t["means3d"].shape[0]
+            hooks = [torch.zeros((n, 2), device=dev, requires_grad=True),
+                     torch.zeros((n,), device=dev, requires_grad=True)]
+            out = R.rasterize(
+                t["means3d"], t["opacities"], camera=cam,
+                colors=t["colors"], scales=t["scales"],
+                rotations=t["rotations"],
+                bg_color=torch.tensor([0.1, 0.2, 0.3], device=dev),
+                capacity=1 << 16, means2d_offset=hooks[0],
+                absgrad_sink=hooks[1], device=dev)
+            loss = (out.color ** 2).sum() + (out.depth ** 2).sum()
+            by_mode[derive] = torch.autograd.grad(
+                loss, list(t.values()) + hooks)
+    finally:
+        R.DERIVE_GM = saved
+    identical = all(torch.equal(a, b)
+                    for a, b in zip(by_mode[True], by_mode[False]))
+    ok = (finite and identical and all(agree.values()) and control_fails
+          and abs(losses["cuda"] - losses["cpu"]) <= 1e-5 * losses["cpu"])
+    emit(dict(phase="small_train", loss=losses, rel_err=errs,
+              rel_err_one_ulp_cpu=ulp, agree=agree,
+              rel_err_control_halved_conic_b=control,
+              control_fails=control_fails,
+              tolerance={"of each gradient's max": tols, "loss": 1e-5},
+              derive_equals_ride_bitwise=identical, finite=finite, ok=ok))
+    check(ok, "small_train", "card and CPU train steps disagree")
 
 
 def phase_frame(torch, kout):
@@ -308,12 +569,138 @@ def phase_frame(torch, kout):
     check(ok, "frame", "tilings disagree")
 
 
+def launch_counts():
+    from gaussianrpg_tpu_torch.ops import blend, scan
+
+    return {"blend_fwd": blend.launches, "cummax": scan.launches,
+            "blend_bwd": blend.bwd_launches}
+
+
+def reset_counts():
+    from gaussianrpg_tpu_torch.ops import blend, scan
+
+    blend.launches = blend.bwd_launches = scan.launches = 0
+
+
+def seg_sum_error(torch, fs, W, H, sizes):
+    """The pair-gather backward (sort-free segment sum: boundary
+    differences of one float32 prefix sum over the whole capacity) against
+    a float64 `index_add_` of the same pair cotangents into their field
+    rows. The cotangents are kernel C's for loss = sum(rgb^2 + depth^2).
+    Returns (max abs error, that over the reference's max, capacity)."""
+    from gaussianrpg_tpu_torch.ops import binning
+    from gaussianrpg_tpu_torch.ops.blend import NF_BASE, blend_pairs
+    from gaussianrpg_tpu_torch.ops.rasterize import pair_rows
+
+    fields = fs.fields.detach().requires_grad_(True)
+    gdata, lists = pair_rows(
+        fs._replace(fields=fields), width=W, height=H,
+        capacity=sizes.capacity, train_mode=True, tail_cap=sizes.tail_cap,
+        big_cap=sizes.big_cap, emit_k=sizes.emit_k)
+    planes = blend_pairs(gdata, lists, torch.zeros(3, device=fields.device),
+                         width=W, height=H, s_ch=fs.s_ch)
+    loss = (planes[0:4] ** 2).sum()
+    (d_g,) = torch.autograd.grad(loss, gdata, retain_graph=True)
+    (got,) = torch.autograd.grad(gdata, fields, d_g)
+    src = lists.pair_src.long()
+    real = src >= 0
+    ref = torch.zeros(fields.shape, dtype=torch.float64,
+                      device=fields.device)
+    ref.index_add_(0, src[real], d_g[real].double())
+    n = fields.shape[0]
+    ntx, nty = binning.tile_grid_dims(W, H, fs.tile_x, fs.tile_y)
+    if not binning.emit_active(n, ntx * nty):
+        # marker path: pair_src indexes the depth-sorted table
+        key = torch.where(fs.radii > 0, fs.depths,
+                          torch.full_like(fs.depths, float("inf")))
+        order = torch.argsort(key, stable=True)
+        unsorted = torch.empty_like(ref)
+        unsorted[order] = ref
+        ref = unsorted
+    cols = NF_BASE + fs.s_ch
+    err = float((got[:, :cols].double() - ref[:, :cols]).abs().max())
+    scale = float(ref[:, :cols].abs().max())
+    return err, err / scale if scale else 0.0, gdata.shape[0]
+
+
+def phase_train_frame(torch, kout):
+    """The bench train step (`bench.py` train_step) on the frozen scene:
+    `rasterize` with both hooks, loss sum(color^2) + sum(depth^2),
+    gradients of the colours and the hooks; at 64x32 (emission binning,
+    derive gm) and 16x16 (marker binning, ridden gm)."""
+    from gaussianrpg_tpu_torch.ops.rasterize import (primitive_fields,
+                                                     rasterize)
+
+    cam, (means, opac, colors, scales, quats), H, W = kout["scene"]
+    bg = torch.zeros(3, device="cuda")
+    n = means.shape[0]
+    total = {}
+    for tx, ty in ((64, 32), (16, 16)):
+        sizes = kout["sizes"][(tx, ty)]
+
+        def step():
+            c = colors.detach().requires_grad_(True)
+            off = torch.zeros((n, 2), device="cuda", requires_grad=True)
+            sink = torch.zeros((n,), device="cuda", requires_grad=True)
+            out = rasterize(means, opac, camera=cam, bg_color=bg, colors=c,
+                            scales=scales, rotations=quats,
+                            means2d_offset=off, absgrad_sink=sink,
+                            capacity=sizes.capacity, tile_x=tx, tile_y=ty,
+                            tail_cap=sizes.tail_cap, big_cap=sizes.big_cap,
+                            emit_k=sizes.emit_k, device="cuda")
+            loss = (out.color ** 2).sum() + (out.depth ** 2).sum()
+            return out, torch.autograd.grad(loss, [c, off, sink])
+
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        times = []
+        for _ in range(5):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            out, grads = step()
+            t1.record()
+            torch.cuda.synchronize()
+            times.append(t0.elapsed_time(t1))
+        launches = launch_counts()
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        peak = torch.cuda.max_memory_allocated()
+        finite = all(bool(torch.isfinite(g).all()) for g in grads)
+        # the AbsGS statistic dominates the signed viewspace gradient, up
+        # to the segment sum's rounding (boundary differences of a float32
+        # prefix sum over the capacity: an absolute error that scales with
+        # the largest sums, left as JAX has it)
+        off_abs = grads[1].abs().sum(dim=1)
+        sink_ok = bool((grads[2] + 1e-3 * float(off_abs.max())
+                        >= off_abs * (1 - 1e-4)).all()) \
+            and float(grads[2].max()) > 0
+        fs = primitive_fields(means, opac, camera=cam, colors=colors,
+                              scales=scales, rotations=quats, tile_x=tx,
+                              tile_y=ty)
+        seg_abs, seg_rel, cap = seg_sum_error(torch, fs, W, H, sizes)
+        del fs
+        ok = (not bool(out.overflow) and finite and sink_ok
+              and all(v > 0 for v in launches.values()))
+        emit(dict(phase="train_frame", tile=f"{tx}x{ty}",
+                  ms=statistics.median(times), ms_all=times,
+                  n_pairs=int(out.n_pairs), capacity=cap,
+                  overflow=bool(out.overflow), finite=finite,
+                  launches=launches, seg_sum_max_abs_err=seg_abs,
+                  seg_sum_rel_err=seg_rel, peak_mem_bytes=peak, ok=ok))
+        check(ok, "train_frame", f"train step at {tx}x{ty} failed")
+        del out, grads
+        torch.cuda.empty_cache()
+    return total
+
+
 def phase_loop(torch):
     """The closed loop at full size."""
     import numpy as np
 
     from gaussianrpg_tpu_torch.apps.simulate import _synthetic_setup
-    from gaussianrpg_tpu_torch.ops import blend, scan
     from gaussianrpg_tpu_torch.sim.loop import run_closed_loop
 
     t0 = time.time()
@@ -329,12 +716,12 @@ def phase_loop(torch):
             bad.append(cam)
         return img
 
-    blend.launches = scan.launches = 0
+    reset_counts()
     res = run_closed_loop(tape, checked_render, det, cam0, gt,
                           brake_distance=15.0, collision_threshold=5.5,
                           simulation_time=3.5, ranger_extrinsic=v2c,
                           cam_height=1.1)
-    launches = {"blend_fwd": blend.launches, "cummax": scan.launches}
+    launches = launch_counts()
     braked = any(e["brake"] != 0.0 for e in res.log)
     ok = (res.verdict == "success" and braked and res.frames_rendered > 5
           and not bad and launches["blend_fwd"] > 0
@@ -346,6 +733,103 @@ def phase_loop(torch):
               setup_s=setup_s, bad_frames=len(bad), launches=launches,
               ok=ok))
     check(ok, "loop", "closed loop failed")
+    return launches
+
+
+TRAIN_STEPS = 60
+DENSIFY_AT = 10      # the trainer's one densify-and-prune event
+EVAL_EVERY = 10
+
+
+def phase_train(torch):
+    """The port's trainer at full width: the synthetic street scene with
+    600k background Gaussians and 2 actors at 1600x1066, 16x16 tiles;
+    ground truth is the initial render, then the background's DC colours
+    are perturbed. TRAIN_STEPS steps of `run_training` (one random view a
+    step, overflow discard-and-retry) with one densify-and-prune event
+    (iteration DENSIFY_AT). The loss is read on fixed views, the trainer's
+    four evaluation views: their L1 must go down from before the first
+    step to the step before the densify event, and from just after it to
+    after the last step (the event itself moves the scene away from the
+    ground truth, which is the initial render). Then one opacity reset,
+    the segment-sum error at the trainer's capacity, and the synthetic
+    training CLI in a subprocess."""
+    import numpy as np
+
+    from gaussianrpg_tpu_torch.apps import train as A
+    from gaussianrpg_tpu_torch.models.scene_graph import compose
+    from gaussianrpg_tpu_torch.ops.rasterize import primitive_fields
+    from gaussianrpg_tpu_torch.train.trainer import OptimConfig
+
+    t0 = time.time()
+    models, meta, arrays, cam_gt, opts = A.synthetic_setup(
+        "cuda", n_background=600_000, bkgd_capacity=786_432, width=1600,
+        height=1066)
+    setup_s = time.time() - t0
+    cfg = OptimConfig(densify_from_iter=0, densification_interval=DENSIFY_AT,
+                      densify_until_iter=DENSIFY_AT + 1,
+                      opacity_reset_interval=TRAIN_STEPS + 1)
+    # the views `run_training` evaluates, before any step
+    before = A.evaluate_views(models, meta, arrays, cam_gt[:4], opts, 0,
+                              device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    state, rec = A.run_training(
+        models, meta, arrays, cam_gt, cfg, opts, TRAIN_STEPS, device="cuda",
+        test_iters=[DENSIFY_AT - 1, *range(DENSIFY_AT, TRAIN_STEPS,
+                                           EVAL_EVERY)], log_every=10)
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = rec["loss"]
+    dens = rec["densify"]
+    evals = {e["it"]: e["l1"] for e in [dict(it=0, **before)] + rec["evals"]}
+    falls = {"before_densify": evals[DENSIFY_AT - 1] < evals[0],
+             "after_densify": evals[TRAIN_STEPS] < evals[DENSIFY_AT]}
+    state = A.apply_opacity_reset(state, meta)
+    max_op = max(float(torch.sigmoid(p.opacity).max())
+                 for p in (state.models.background, state.models.actors))
+    ok = (len(losses) == TRAIN_STEPS and bool(np.isfinite(losses).all())
+          and all(falls.values())
+          and len(dens) == 1 and dens[0]["n_clone"] + dens[0]["n_split"] > 0
+          and max_op <= 0.011 and all(v > 0 for v in launches.values()))
+    cam = cam_gt[0][0]
+    with torch.no_grad():
+        scene = compose(state.models, meta, arrays, cam, 0)
+        fs = primitive_fields(
+            scene.means3d, scene.opacity, camera=cam, colors=scene.colors,
+            scales=scene.scales, rotations=scene.rotations,
+            active_mask=scene.mask, tile_x=16, tile_y=16)
+    seg_abs, seg_rel, cap = seg_sum_error(torch, fs, cam.width, cam.height,
+                                          rec["opts"])
+    del fs, scene
+    emit(dict(phase="train", gaussians=600_000, actors=meta.num_actors,
+              size="1600x1066", tile="16x16", steps=len(losses),
+              eval_views=before["n_views"], eval_l1_at_iteration=evals,
+              eval_l1_falls=falls, psnr_evals=rec["evals"],
+              first_loss=losses[0], last_loss=losses[-1], losses=losses,
+              median_step_ms=rec["median_step_ms"],
+              n_active_before=dens[0]["n_active_before"] if dens else None,
+              n_active_after=dens[0]["n_active"] if dens else None,
+              densify=dens, overflow_retries=rec["retries"],
+              capacity=rec["opts"].capacity, max_opacity_after_reset=max_op,
+              launches=launches, seg_sum_max_abs_err=seg_abs,
+              seg_sum_rel_err=seg_rel, seg_sum_capacity=cap,
+              peak_mem_bytes=peak, setup_s=setup_s, ok=ok))
+    check(ok, "train", "trainer run failed")
+    del state, models, cam_gt
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    cmd = [sys.executable, "-m", "gaussianrpg_tpu_torch.apps.train",
+           "--synthetic", "--iterations", "30"]
+    proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=600)
+    tail = proc.stdout.strip().splitlines()[-1:] or [proc.stderr[-400:]]
+    emit(dict(phase="train", cli=" ".join(cmd[1:]), rc=proc.returncode,
+              seconds=time.time() - t0, last_line=tail[0],
+              ok=proc.returncode == 0))
+    check(proc.returncode == 0, "train", "training CLI failed")
     return launches
 
 
@@ -371,7 +855,7 @@ def main():
     print(smi, flush=True)
     try:
         t0 = time.time()
-        cuda_build.build_all(["cummax", "blend_fwd"])
+        cuda_build.build_all(["cummax", "blend_fwd", "blend_bwd"])
         ptxas = {name: [ln.strip() for ln in log.splitlines()
                         if "registers" in ln or "spill" in ln]
                  for name, log in cuda_build.build_logs.items()}
@@ -379,15 +863,23 @@ def main():
                   ok=True))
         kout = phase_kernels(torch)
         phase_small(torch)
+        phase_small_train(torch)
         phase_frame(torch, kout)
-        launches = phase_loop(torch)
+        runs = [phase_train_frame(torch, kout)]
+        del kout["scene"]
+        torch.cuda.empty_cache()
+        runs.append(phase_loop(torch))
+        runs.append(phase_train(torch))
     except PhaseFailed as e:
         print(f"chip_smoke: {e}", file=sys.stderr)
         return 1
+    launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     b = kout["blend_fwd"][(16, 16, 0)]
     c = kout["cummax"][1]
+    d = kout["blend_bwd"][(16, 16, 0)]
     errs_b = max(r["max_abs_err"] for r in kout["blend_fwd"].values())
     errs_c = max(r["max_abs_err"] for r in kout["cummax"].values())
+    errs_d = max(r["max_abs_err"] for r in kout["blend_bwd"].values())
     emit({"kernels": [
         {"name": "blend_fwd", "route": "cuda",
          "source": "gaussianrpg_tpu_torch/csrc/blend_fwd.cu",
@@ -401,6 +893,12 @@ def main():
          "launches": launches["cummax"], "max_abs_err": errs_c,
          "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
          "bound_by": c["bound_by"], "library_ms": c["library_ms"]},
+        {"name": "blend_bwd", "route": "cuda",
+         "source": "gaussianrpg_tpu_torch/csrc/blend_bwd.cu",
+         "replaces": "gaussianrpg_tpu/ops/pallas_blend.py:331",
+         "launches": launches["blend_bwd"], "max_abs_err": errs_d,
+         "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
+         "bound_by": d["bound_by"], "library_ms": None},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,11 +1,14 @@
 """Device-time breakdown of the port's frame on one card.
 
 Counterpart of `gaussianrpg_tpu/apps/profile_trace.py`. Runs N frames of
-two workloads under `torch.profiler` and prints one JSON line for each:
+three workloads under `torch.profiler` and prints one JSON line for each:
   frame  `rasterize` on the frozen bench scene (600k Gaussians,
          1066x1600) at the loop's 16x16 tiling;
   loop   the closed loop's render function (compose, rasterize, host copy
-         of the image) on the synthetic 600k-background scene at 1066x1600.
+         of the image) on the synthetic 600k-background scene at 1066x1600;
+  train  one step of the trainer (`train.trainer.make_train_step`: train
+         render, losses, backward, Adam, densification statistics) on the
+         synthetic 600k-background + 2-actor scene at 1066x1600.
 Each line holds the host ms per frame (synchronized), the device ms per
 frame spent in kernels and in copies, the device's idle share, and the
 kernels that took the most device time:
@@ -65,8 +68,12 @@ def main(argv=None):
     import torch
 
     from ..apps.simulate import _synthetic_setup
+    from ..apps.train import synthetic_setup
+    from ..models.scene_graph import total_capacity
     from ..ops.rasterize import (primitive_fields, rasterize,
                                  suggest_binning_sizes)
+    from ..train.trainer import (Batch, OptimConfig, init_train_state,
+                                 make_train_step)
     from ..utils.synthetic import build_frozen_scene
 
     p = argparse.ArgumentParser()
@@ -104,6 +111,25 @@ def main(argv=None):
         bkgd_capacity=600_000, device=dev)
     rec = _breakdown(lambda: render_fn(cam0), args.frames, trace("loop"))
     print(json.dumps(dict(workload="loop", tile="16x16", **rec)),
+          flush=True)
+    del render_fn
+    torch.cuda.empty_cache()
+
+    models, meta, arrays, cam_gt, opts = synthetic_setup(
+        dev, n_background=600_000, bkgd_capacity=786_432, width=1600,
+        height=1066)
+    step = make_train_step(meta, arrays, OptimConfig(), opts,
+                           total_capacity(models), device=dev)
+    state = init_train_state(models)
+    cam, gt = cam_gt[0]
+
+    def train_step():
+        # the same state every time: the step is out of place
+        return step(state, cam, Batch(gt_image=gt),
+                    torch.Generator(device=dev).manual_seed(1), 0)
+
+    rec = _breakdown(train_step, args.frames, trace("train"))
+    print(json.dumps(dict(workload="train", tile="16x16", **rec)),
           flush=True)
 
 

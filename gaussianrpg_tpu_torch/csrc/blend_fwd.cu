@@ -94,19 +94,25 @@ __global__ void __launch_bounds__(256) blend_fwd(Params p) {
 #pragma unroll
       for (int k = 0; k < PPT; ++k) {
         if (done[k]) continue;
-        const float dx = mx - px[k];
-        const float dy = my - py[k];
-        const float power = -0.5f * (ca * dx * dx + cc * dy * dy) - cb * dx * dy;
+        // the skip/stop decisions are written with explicitly rounded
+        // operations (no FMA contraction) so that kernel C
+        // (blend_bwd.cu), which replays them, takes the same decisions
+        const float dx = __fsub_rn(mx, px[k]);
+        const float dy = __fsub_rn(my, py[k]);
+        const float power = __fsub_rn(
+            __fmul_rn(-0.5f, __fadd_rn(__fmul_rn(__fmul_rn(ca, dx), dx),
+                                       __fmul_rn(__fmul_rn(cc, dy), dy))),
+            __fmul_rn(__fmul_rn(cb, dx), dy));
         if (power > 0.0f) continue;
-        const float alpha_raw = op * expf(power);
+        const float alpha_raw = __fmul_rn(op, expf(power));
         if (alpha_raw < 1.0f / 255.0f) continue;
         const float alpha = fminf(alpha_raw, 0.99f);
-        const float test_t = T[k] * (1.0f - alpha);
+        const float test_t = __fmul_rn(T[k], __fsub_rn(1.0f, alpha));
         if (test_t < 1e-4f) {
           done[k] = true;
           continue;
         }
-        const float w = alpha * T[k];
+        const float w = __fmul_rn(alpha, T[k]);
         acc[k][0] += w * g[6];
         acc[k][1] += w * g[7];
         acc[k][2] += w * g[8];

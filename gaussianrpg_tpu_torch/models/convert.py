@@ -15,7 +15,6 @@ import dataclasses
 
 import numpy as np
 import torch
-from torch import nn
 
 from ..utils.device import resolve_device
 from . import gaussians as G
@@ -42,27 +41,14 @@ def _fill(cls, tree, dev, overrides=None):
     return cls(**kw)
 
 
-def _mlp_from_layers(layers: dict, dev) -> nn.Sequential:
-    n = len(layers) // 2
-    mods = []
-    for i in range(n):
-        w = _tensor(np.asarray(layers[f"w{i}"], np.float32), dev)  # [in, out]
-        lin = nn.Linear(w.shape[0], w.shape[1], device=dev)
-        with torch.no_grad():
-            lin.weight.copy_(w.T)
-            lin.bias.copy_(_tensor(np.asarray(layers[f"b{i}"], np.float32),
-                                   dev))
-        mods.append(lin)
-        if i < n - 1:
-            mods.append(nn.ReLU())
-    return nn.Sequential(*mods)
-
-
 def _color_correction(tree, dev):
     if tree["use_mlp"]:
-        return ColorCorrection(_mlp_from_layers(tree["affine"], dev),
-                               _mlp_from_layers(tree["affine_sky"], dev),
-                               mode=tree["mode"], use_mlp=True)
+        def layers(t):
+            return {k: _tensor(np.asarray(v, np.float32), dev)
+                    for k, v in t.items()}
+        return ColorCorrection(layers(tree["affine"]),
+                               layers(tree["affine_sky"]), mode=tree["mode"],
+                               use_mlp=True)
     return ColorCorrection(_tensor(tree["affine"], dev),
                            _tensor(tree["affine_sky"], dev),
                            mode=tree["mode"])

@@ -1,10 +1,11 @@
 """Composite Street Gaussians scene graph flattened per camera.
 
-Counterpart of `gaussianrpg_tpu/models/scene_graph.py`, eval side
-(`compose` without the training flip): static background + tracked actors
-stacked [O, A, ...] + optional sky Gaussians, flattened into one
-rasterizer-ready set of length B_cap + O*A_cap (+ S_cap) for every frame;
-actors not alive at the camera timestamp and inactive slots are masked.
+Counterpart of `gaussianrpg_tpu/models/scene_graph.py`: static background
++ tracked actors stacked [O, A, ...] + optional sky Gaussians, flattened
+into one rasterizer-ready set of length B_cap + O*A_cap (+ S_cap) for every
+frame; actors not alive at the camera timestamp and inactive slots are
+masked. In training, actor Gaussians are mirrored about their box's y axis
+with probability `flip_prob` (drawn from a `torch.Generator`).
 """
 from __future__ import annotations
 
@@ -21,6 +22,11 @@ from .actor_pose import ActorPose, object_poses
 from .corrections import (ColorCorrection, PoseCorrection,
                           correct_gaussian_rotation, correct_gaussian_xyz)
 from .sky import SkyCubeMap
+
+# quaternion of diag(-1, 1, -1): the 180-degree rotation about +y of the
+# symmetry flip
+FLIP_QUAT = (0.0, 0.0, 1.0, 0.0)
+FLIP_AXIS = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,6 +83,31 @@ class SceneModels:
         return dataclasses.replace(self, **kw)
 
 
+def total_capacity(models: SceneModels) -> int:
+    b = models.background.capacity
+    if models.sky_gauss is not None:
+        b += models.sky_gauss.capacity
+    if models.actors is None or models.actors.xyz.shape[0] == 0:
+        return b
+    o, a = models.actors.xyz.shape[:2]
+    return b + o * a
+
+
+def actor_extents(arrays: SceneArrays, box_scale: float = 1.0):
+    """Per-actor spatial extent max(l*1.5/box_scale, w*1.5/box_scale, h)/2:
+    the actor's learning-rate scale and densify extent."""
+    b = arrays.actor_bbox
+    return torch.maximum(torch.maximum(b[:, 0] * 1.5 / box_scale,
+                                       b[:, 1] * 1.5 / box_scale),
+                         b[:, 2]) / 2.0
+
+
+def _uniform(shape, generator: torch.Generator, device) -> torch.Tensor:
+    """U[0, 1) draws of the training symmetry flip (tests replace this
+    helper to feed the JAX package's draws)."""
+    return torch.rand(shape, generator=generator, device=device)
+
+
 @dataclasses.dataclass
 class ComposedScene:
     means3d: torch.Tensor             # [N, 3]
@@ -118,9 +149,13 @@ def sky_sphere_xyz(xyz, center, radius):
 
 
 def compose(models: SceneModels, meta: SceneMeta, arrays: SceneArrays,
-            camera, active_sh_degree: int, include_background: bool = True,
-            include_objects: bool = True) -> ComposedScene:
-    """Flatten all sub-models into single arrays for one camera."""
+            camera, active_sh_degree: int,
+            flip: torch.Generator | None = None,
+            include_background: bool = True, include_objects: bool = True,
+            train_mode: bool = False) -> ComposedScene:
+    """Flatten all sub-models into single arrays for one camera. In train
+    mode with `meta.flip_prob > 0`, the `flip` generator draws each actor
+    Gaussian's symmetry flip."""
     parts = {k: [] for k in ("xyz", "color", "op", "scale", "rot", "sem",
                              "mask")}
     cam_center = camera.cam_center
@@ -168,6 +203,15 @@ def compose(models: SceneModels, meta: SceneMeta, arrays: SceneArrays,
         xyz_l = ac.xyz
         rot_l = ac.rotation / torch.linalg.norm(ac.rotation, dim=-1,
                                                 keepdim=True)
+        if train_mode and meta.flip_prob > 0 and flip is not None:
+            fl = _uniform((o_cnt, a_cap), flip, dev) < meta.flip_prob
+            fl = fl & (~arrays.actor_deformable[:, None])
+            sign = torch.ones(3, device=dev)
+            sign[FLIP_AXIS] = -1.0
+            xyz_l = torch.where(fl[..., None], xyz_l * sign, xyz_l)
+            q = torch.tensor(FLIP_QUAT, dtype=rot_l.dtype, device=dev)
+            rot_l = torch.where(fl[..., None], quaternion_multiply(
+                q.expand(rot_l.shape), rot_l), rot_l)
         rmat = quaternion_to_matrix(rots)
         xyz_w = torch.einsum("oij,oaj->oai", rmat, xyz_l) + trans[:, None, :]
         rot_w = quaternion_multiply(rots[:, None, :].expand(rot_l.shape),

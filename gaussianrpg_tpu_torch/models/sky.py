@@ -1,23 +1,27 @@
 """Learnable sky cube map with a bilinear cube sampler.
 
 Counterpart of `gaussianrpg_tpu/models/sky.py`: GL face order (+x, -x, +y,
--y, +z, -z), bilinear lookup clamped to the face edge, pixel-centre rays.
-The cube map is an `nn.Module` parameter.
+-y, +z, -z), bilinear lookup clamped to the face edge, pixel-centre rays
+(uniformly jittered inside the pixel in training, drawn from a
+`torch.Generator`). The cube map is a plain tensor the trainer learns.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
-from torch import nn
 
 
-class SkyCubeMap(nn.Module):
-    def __init__(self, cube_map: torch.Tensor):
-        super().__init__()
-        self.cube_map = nn.Parameter(cube_map, requires_grad=False)  # [6,R,R,3]
+@dataclasses.dataclass
+class SkyCubeMap:
+    cube_map: torch.Tensor   # [6, R, R, 3]
 
     @property
     def resolution(self) -> int:
         return self.cube_map.shape[1]
+
+    def replace(self, **kw) -> "SkyCubeMap":
+        return dataclasses.replace(self, **kw)
 
 
 def init_sky_cubemap(resolution: int = 1024, init_value: float = 0.5,
@@ -75,15 +79,29 @@ def sample_cubemap(cube_map: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
             + wy * ((1 - wx) * c10 + wx * c11))
 
 
-def camera_rays(camera) -> torch.Tensor:
+def _uniform(shape, generator: torch.Generator, device) -> torch.Tensor:
+    """U[0, 1) draws of the training ray jitter (tests replace this helper
+    to feed the JAX package's draws)."""
+    return torch.rand(shape, generator=generator, device=device)
+
+
+def camera_rays(camera, perturb: torch.Generator | None = None
+                ) -> torch.Tensor:
     """Per-pixel world-space unit ray directions [H, W, 3] through pixel
-    centres."""
+    centres, or (with a `perturb` generator) through uniform points of
+    each pixel: the column offsets are drawn first, then the rows."""
     H, W = camera.height, camera.width
     dev = camera.viewmatrix.device
     j, i = torch.meshgrid(torch.arange(H, dtype=torch.float32, device=dev),
                           torch.arange(W, dtype=torch.float32, device=dev),
                           indexing="ij")
-    xy1 = torch.stack([i + 0.5, j + 0.5, torch.ones_like(i)], dim=-1)
+    if perturb is not None:
+        i = i + _uniform(i.shape, perturb, dev)
+        j = j + _uniform(j.shape, perturb, dev)
+    else:
+        i = i + 0.5
+        j = j + 0.5
+    xy1 = torch.stack([i, j, torch.ones_like(i)], dim=-1)
     k_inv = torch.linalg.inv(camera.K)
     pix_cam = xy1 @ k_inv.T
     rot = camera.viewmatrix[:3, :3].T
@@ -91,8 +109,9 @@ def camera_rays(camera) -> torch.Tensor:
     return dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
 
 
-def render_sky(sky: SkyCubeMap, camera) -> torch.Tensor:
+def render_sky(sky: SkyCubeMap, camera,
+               perturb: torch.Generator | None = None) -> torch.Tensor:
     """Sky colour image [3, H, W] (the renderer composites
     rgb += sky * (1 - acc))."""
-    color = sample_cubemap(sky.cube_map, camera_rays(camera))
+    color = sample_cubemap(sky.cube_map, camera_rays(camera, perturb))
     return torch.clamp(color, 0.0, 1.0).permute(2, 0, 1)

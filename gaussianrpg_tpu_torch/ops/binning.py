@@ -1,15 +1,19 @@
 """Tile binning: depth-ordered, tile-grouped pair lists padded to the blend
 kernel's 128-pair chunks.
 
-Counterpart of `gaussianrpg_tpu/ops/binning.py`, eval side: the emission
-path (`_build_pair_lists_emit`) and the default marker path of
+Counterpart of `gaussianrpg_tpu/ops/binning.py`: the emission path
+(`_build_pair_lists_emit`) and the default marker path of
 `build_pair_lists` (one gaussian-id marker scatter, a cummax fill, one
-row take), both with `ride_gm=False`. Every running-max fill of either
-path goes through kernel A (`_fill`), where the JAX package uses XLA's
-cummax for lengths that are not a multiple of 65536 and on the emission
-path. Outputs are element-for-element those of the JAX package.
-The legacy packed-marker branches and `SCATTER_COLS` (TPU A/B knobs whose
-output equals the default) are not ported.
+row take). With `ride_gm` (training) they also return the machinery of
+the sort-free pair-gradient segment sum: each slot's expansion-order
+index `pair_gm` (ridden through the sort), or with `derive_gm` on the
+emission path the slot's tile `pair_tile` (the caller rebuilds gm), plus
+each gaussian's expansion segment `seg_offs`/`seg_area`. Every
+running-max fill of either path goes through kernel A (`_fill`), where
+the JAX package uses XLA's cummax for lengths that are not a multiple of
+65536 and on the emission path. Outputs are element-for-element those of
+the JAX package. The legacy packed-marker branches and `SCATTER_COLS`
+(TPU A/B knobs whose output equals the default) are not ported.
 
 Scatter-max with `mode="drop"` becomes a range filter followed by
 `scatter_reduce_(reduce="amax")`; counts are taken in float32 or int, never
@@ -50,6 +54,11 @@ class PairLists(NamedTuple):
     tile_x: int = TILE_X
     tile_y: int = TILE_Y
     sub_chunks: int = 1
+    # training extras (ride_gm=True)
+    pair_gm: torch.Tensor | None = None    # [P_pad] i32 expansion index (-1 pad)
+    seg_offs: torch.Tensor | None = None   # [N] i32 first expansion slot
+    seg_area: torch.Tensor | None = None   # [N] i32 pairs per gaussian
+    pair_tile: torch.Tensor | None = None  # [P_pad] i32 tile (-1 pad; derive_gm)
 
     @property
     def overflowed(self) -> torch.Tensor:
@@ -122,12 +131,13 @@ def _emit_decode(k, rw_f, base0, ntx):
     return base0 + row * ntx + col
 
 
-def _build_pair_lists_emit(x0, y0, rw, area, raw_total, capacity, align,
-                           sub, n_tiles, ntx, nty, max_chunks, tile_x,
-                           tile_y, rank=None, tail_cap=None, big_cap=None,
-                           emit_k=None):
+def _build_pair_lists_emit(x0, y0, rw, area, offs, raw_total, capacity,
+                           align, sub, n_tiles, ntx, nty, max_chunks, tile_x,
+                           tile_y, ride_gm, rank=None, tail_cap=None,
+                           big_cap=None, derive_gm=False, emit_k=None):
     """Transposed K-slot emission + one keyed sort of
-    (tile << 20 | depth rank) keys (unique for real pairs)."""
+    (tile << 20 | depth rank) keys (unique for real pairs). `offs` (the
+    exclusive cumsum of the areas) is needed only with `ride_gm`."""
     dev = x0.device
     n = x0.shape[0]
     K = EMIT_K if emit_k is None else emit_k
@@ -162,6 +172,9 @@ def _build_pair_lists_emit(x0, y0, rw, area, raw_total, capacity, align,
     valid_e = kk < area[None, :]
     key_e = torch.where(valid_e, (tile_e << gb) | krank[None, :], sent)
     src_e = g32[None, :].expand(K, n)
+    if offs is None:                   # eval: the gm machinery is unused
+        offs = area
+    gm_e = offs[None, :] + kk
 
     # tail: rects bigger than K, compacted then marker-expanded
     if tail_cap is None:
@@ -179,6 +192,7 @@ def _build_pair_lists_emit(x0, y0, rw, area, raw_total, capacity, align,
     tail_total = b_offs_t[-1] + b_at[-1]
     b_tab = torch.stack(
         [base0[order_b],
+         offs[order_b],
          torch.clamp(rw[order_b], min=1),
          g32[order_b],
          b_offs_t,
@@ -189,12 +203,13 @@ def _build_pair_lists_emit(x0, y0, rw, area, raw_total, capacity, align,
     fillb = _fill(markb) - 1
     rows_b = b_tab[torch.clamp(fillb, min=0).long()]
     t_idx = torch.arange(tail_cap, dtype=I32, device=dev)
-    k_t = K + (t_idx - rows_b[:, 3])
-    tile_t = _emit_decode(k_t, rows_b[:, 1].to(torch.float32),
+    k_t = K + (t_idx - rows_b[:, 4])
+    tile_t = _emit_decode(k_t, rows_b[:, 2].to(torch.float32),
                           rows_b[:, 0], ntx)
     ok_t = (t_idx < tail_total) & (fillb >= 0)
-    key_t = torch.where(ok_t, (tile_t << gb) | rows_b[:, 4], sent)
-    src_t = rows_b[:, 2]
+    key_t = torch.where(ok_t, (tile_t << gb) | rows_b[:, 5], sent)
+    src_t = rows_b[:, 3]
+    gm_t = rows_b[:, 1] + k_t
     tail_overflow = (tail_total > tail_cap) | (n_big > big_cap)
 
     # per-tile padding slots
@@ -219,10 +234,27 @@ def _build_pair_lists_emit(x0, y0, rw, area, raw_total, capacity, align,
         keys = torch.cat([keys, sent.expand(pad)])
         srcs = torch.cat([srcs, torch.full((pad,), -1, dtype=I32,
                                            device=dev)])
-    srcs = torch.where(keys == sent, torch.full_like(srcs, -1), srcs)
-    perm = torch.sort(keys).indices
-    pair_src = srcs[perm[:p_max]]
+    dead = keys == sent
+    srcs = torch.where(dead, torch.full_like(srcs, -1), srcs)
+    # real keys are unique and the padding/dead slots carry -1 payloads, so
+    # an unstable sort lands the same (src, gm) columns as the JAX sort
+    sorted_keys, perm = torch.sort(keys)
+    perm = perm[:p_max]
+    pair_src = srcs[perm]
     pair_valid = pair_src >= 0
+    pair_gm = pair_tile = None
+    if ride_gm and not derive_gm:
+        gms = torch.cat([gm_e.reshape(-1), gm_t,
+                         torch.full((spare_cap,), -1, dtype=I32, device=dev)])
+        if m < p_max:
+            gms = torch.cat([gms, torch.full((p_max - m,), -1, dtype=I32,
+                                             device=dev)])
+        pair_gm = torch.where(dead, torch.full_like(gms, -1), gms)[perm]
+    elif ride_gm:
+        # derive mode: the sorted key's high field is the covered tile
+        sk = sorted_keys[:p_max]
+        real = (sk != _EMIT_SENT) & ((sk & _EMIT_SPARE) != _EMIT_SPARE)
+        pair_tile = torch.where(real, sk >> gb, torch.full_like(sk, -1))
 
     padded_total = torch.where(
         tail_overflow, torch.tensor(capacity + align, dtype=I32, device=dev),
@@ -231,7 +263,9 @@ def _build_pair_lists_emit(x0, y0, rw, area, raw_total, capacity, align,
         pair_src=pair_src, pair_valid=pair_valid, tile_nonempty=tile_written,
         chunk_meta=chunk_meta, raw_total=raw_total,
         padded_total=padded_total, n_tiles_x=ntx, n_tiles_y=nty,
-        capacity=capacity, tile_x=tile_x, tile_y=tile_y, sub_chunks=sub)
+        capacity=capacity, tile_x=tile_x, tile_y=tile_y, sub_chunks=sub,
+        pair_gm=pair_gm, seg_offs=offs if ride_gm else None,
+        seg_area=area if ride_gm else None, pair_tile=pair_tile)
 
 
 def build_pair_lists(
@@ -241,19 +275,23 @@ def build_pair_lists(
     width: int,
     height: int,
     capacity: int,
+    ride_gm: bool = False,
     tile_x: int = TILE_X,
     tile_y: int = TILE_Y,
     sub_chunks: int | None = None,
     rank: torch.Tensor | None = None,
     tail_cap: int | None = None,
     big_cap: int | None = None,
+    derive_gm: bool = False,
     emit_k: int | None = None,
 ) -> PairLists:
     """Expand Gaussians into tile-grouped, depth-ordered pair lists.
 
     Without `rank` the inputs are depth-sorted and pair_src indexes the
     sorted table; with `rank` (emission path only) they stay in original
-    order and pair_src indexes the original table."""
+    order and pair_src indexes the original table. `ride_gm` adds the
+    training fields (pair_gm, seg_offs, seg_area); with `derive_gm` the
+    emission path returns pair_tile instead of pair_gm."""
     sub = SUB_CHUNKS if sub_chunks is None else sub_chunks
     align = G_CHUNK * sub
     assert capacity % align == 0
@@ -270,16 +308,20 @@ def build_pair_lists(
     rh = torch.clamp(rect_max[:, 1] - y0, min=0).to(I32)
     area = torch.where(visible, rw * rh, torch.zeros_like(rw)).to(I32)
 
-    if emit_active(n, n_tiles):
+    if ride_gm or not emit_active(n, n_tiles):
+        offs = _cumsum(area) - area                  # exclusive prefix
+        raw_total = offs[-1] + area[-1]
+    else:
+        offs = None
         raw_total = torch.sum(area, dtype=I32)
-        return _build_pair_lists_emit(
-            x0, y0, rw, area, raw_total, capacity, align, sub, n_tiles,
-            ntx, nty, max_chunks, tile_x, tile_y, rank=rank,
-            tail_cap=tail_cap, big_cap=big_cap, emit_k=emit_k)
-    assert rank is None, "rank requires the emission path (emit_active)"
 
-    offs = _cumsum(area) - area
-    raw_total = offs[-1] + area[-1]
+    if emit_active(n, n_tiles):
+        return _build_pair_lists_emit(
+            x0, y0, rw, area, offs, raw_total, capacity, align, sub,
+            n_tiles, ntx, nty, max_chunks, tile_x, tile_y, ride_gm,
+            rank=rank, tail_cap=tail_cap, big_cap=big_cap,
+            derive_gm=derive_gm, emit_k=emit_k)
+    assert rank is None, "rank requires the emission path (emit_active)"
 
     # one-scatter expansion: gaussian-id marker + cummax fill + one row
     # take of (tile base, segment start, rect width)
@@ -327,9 +369,15 @@ def build_pair_lists(
     src2 = torch.where(pair_ok, pair_g, torch.full_like(pair_g, -1))
     perm = torch.sort(key2, stable=True).indices
     pair_src = src2[perm]
+    pair_gm = None
+    if ride_gm:
+        pair_gm = torch.where(pair_ok, pair_idx,
+                              torch.full_like(pair_idx, -1))[perm]
     return PairLists(
         pair_src=pair_src, pair_valid=pair_src >= 0,
         tile_nonempty=tile_written, chunk_meta=chunk_meta,
         raw_total=raw_total, padded_total=padded_total, n_tiles_x=ntx,
         n_tiles_y=nty, capacity=capacity, tile_x=tile_x, tile_y=tile_y,
-        sub_chunks=sub)
+        sub_chunks=sub, pair_gm=pair_gm,
+        seg_offs=offs if ride_gm else None,
+        seg_area=area if ride_gm else None)

@@ -1,19 +1,28 @@
-"""Blend forward (kernel B): front-to-back alpha compositing over the flat,
-tile-grouped, depth-ordered pair lists.
+"""Blend forward (kernel B) and backward (kernel C): front-to-back alpha
+compositing over the flat, tile-grouped, depth-ordered pair lists, and its
+hand-derived gradient.
 
-Counterpart of `gaussianrpg_tpu/ops/pallas_blend.py`, forward only:
-`blend_forward` stands for the Pallas forward call (`_make_fwd_kernel`),
-`blend_pairs` and `planes_to_image` keep their JAX names. On a CUDA tensor
-`blend_forward` launches `csrc/blend_fwd.cu`; on a CPU tensor it runs the
-plain version, which vectorizes the TPU kernel's formulation over tiles
-(per chunk: the log-step exclusive product of (1 - alpha) along the pairs,
-the monotone stop predicate, a feature x weight contraction).
+Counterpart of `gaussianrpg_tpu/ops/pallas_blend.py`: `blend_forward`
+stands for the Pallas forward call (`_make_fwd_kernel`), `blend_backward`
+for the backward call (`_make_bwd_kernel`), `_Blend` for the custom VJP
+(`_make_blend`); `blend_pairs` and `planes_to_image` keep their JAX names.
+On a CUDA tensor the two wrappers launch `csrc/blend_fwd.cu` and
+`csrc/blend_bwd.cu`; on a CPU tensor they run the plain versions, which
+vectorize the TPU kernel's formulation over tiles (per chunk: the log-step
+exclusive product of (1 - alpha) along the pairs, the monotone stop
+predicate, contractions over the pixels). A pair is always one device's:
+the kernel forward with the kernel backward, the plain forward with the
+plain backward, so the backward's contribution mask is the one that made
+the planes.
 
 Parity contract (the TPU kernel's): skip a pair where power > 0 or
 alpha_raw < 1/255; alpha = min(0.99, op*exp(power)); a pixel stops before
 the pair that would drive T*(1-alpha) below 1e-4; out = C + T_final*bg;
 alpha and depth/semantics alpha-weighted. Padding rows are all zero and
-therefore skipped.
+therefore skipped. The backward ignores the 0.99 clamp and returns, per
+pair slot and in gdata's column layout, dL/d{mx, my} (pixels), conic a, b,
+c, opacity, r, g, b, depth, the AbsGS statistic sum(W/2 |gx| + H/2 |gy|)
+in the F_RADIUS column, and semantics; other columns are zero.
 """
 from __future__ import annotations
 
@@ -31,7 +40,8 @@ F_SEM = NF_BASE
 SMEM_LIMIT = 232448          # bytes of shared memory a block may use
 PLAIN_BATCH_ELEMS = 1 << 24  # (tile, pair, pixel) elements per plain step
 
-launches = 0                 # kernel launches through `blend_forward`
+launches = 0                 # kernel B launches through `blend_forward`
+bwd_launches = 0             # kernel C launches through `blend_backward`
 
 
 def tile_chunk_ranges(chunk_meta: torch.Tensor, n_tiles: int):
@@ -53,32 +63,34 @@ def tile_chunk_ranges(chunk_meta: torch.Tensor, n_tiles: int):
     return start[:n_tiles].contiguous(), end[:n_tiles].contiguous()
 
 
-def _check(gdata, chunk_meta, bg, n_tiles, tx, ty, s_ch):
+def _check(gdata, chunk_meta, bg, n_tiles, tx, ty, s_ch, smem_floats,
+           name):
     if gdata.dim() != 2 or gdata.dtype != torch.float32:
-        raise TypeError("blend_forward: gdata must be a 2-D float32 tensor")
+        raise TypeError(f"{name}: gdata must be a 2-D float32 tensor")
     cap, nf = gdata.shape
     if cap % G_CHUNK:
-        raise ValueError(f"blend_forward: capacity {cap} is not a multiple "
+        raise ValueError(f"{name}: capacity {cap} is not a multiple "
                          f"of {G_CHUNK}")
     if nf < NF_BASE + s_ch or nf % 4:
-        raise ValueError(f"blend_forward: NF={nf} must be a multiple of 4 "
+        raise ValueError(f"{name}: NF={nf} must be a multiple of 4 "
                          f"holding {NF_BASE}+{s_ch} columns")
     if (chunk_meta.dtype != torch.int32 or chunk_meta.dim() != 1
             or chunk_meta.shape[0] != cap // G_CHUNK):
-        raise ValueError("blend_forward: chunk_meta must be int32 "
+        raise ValueError(f"{name}: chunk_meta must be int32 "
                          f"[{cap // G_CHUNK}]")
     if bg.dtype != torch.float32 or bg.numel() != 3:
-        raise ValueError("blend_forward: bg must be float32 [3]")
+        raise ValueError(f"{name}: bg must be float32 [3]")
     if not (gdata.device == chunk_meta.device == bg.device):
-        raise ValueError("blend_forward: tensors on different devices")
+        raise ValueError(f"{name}: tensors on different devices")
     n_pix = tx * ty
     threads = 256 if n_pix >= 256 else n_pix
-    if n_pix % threads or n_pix // threads not in (1, 2, 4, 8):
-        raise ValueError(f"blend_forward: tile {tx}x{ty} not supported "
+    if n_pix % threads or n_pix // threads not in (1, 2, 4, 8) \
+            or threads % 32:
+        raise ValueError(f"{name}: tile {tx}x{ty} not supported "
                          "(tx*ty must be 128..2048 and a power-of-two "
                          "multiple of 256 above 256)")
-    if 4 * (G_CHUNK * nf + s_ch * n_pix) > SMEM_LIMIT:
-        raise ValueError(f"blend_forward: S={s_ch} needs more shared "
+    if 4 * smem_floats > SMEM_LIMIT:
+        raise ValueError(f"{name}: S={s_ch} needs more shared "
                          "memory than a block has")
 
 
@@ -89,7 +101,8 @@ def blend_forward(gdata, chunk_meta, bg, *, ntx: int, nty: int, tx: int,
     with `PairLists.tile_nonempty`."""
     global launches
     n_tiles = ntx * nty
-    _check(gdata, chunk_meta, bg, n_tiles, tx, ty, s_ch)
+    _check(gdata, chunk_meta, bg, n_tiles, tx, ty, s_ch,
+           G_CHUNK * gdata.shape[1] + s_ch * tx * ty, "blend_forward")
     if gdata.device.type == "cpu":
         return blend_forward_plain(gdata, chunk_meta, bg, ntx=ntx, nty=nty,
                                    tx=tx, ty=ty, s_ch=s_ch)
@@ -129,6 +142,70 @@ def _cumprod_excl(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.ones_like(y[:, :1]), y[:, :-1]], dim=1)
 
 
+def _plain_batches(chunk_meta, n_tiles, n_pix):
+    """Live tiles in batches of similar chunk counts: yields (tiles,
+    chunk counts, first chunks) of each batch, tiles sorted by count."""
+    start, end = tile_chunk_ranges(chunk_meta, n_tiles)
+    nchunks = torch.where((start >= 0) & (end > start), end - start,
+                          torch.zeros_like(end))
+    order = torch.argsort(nchunks, descending=True, stable=True)
+    n_live_tiles = int((nchunks > 0).sum())
+    order = order[:n_live_tiles]
+    batch = max(1, PLAIN_BATCH_ELEMS // (G_CHUNK * n_pix))
+    for b0 in range(0, n_live_tiles, batch):
+        tb = order[b0:b0 + batch]
+        yield tb, nchunks[tb], start[tb].long()
+
+
+def _replay_chunk(gdata, rows, px, py, t_run, done, s_ch):
+    """One chunk of the forward for a batch of tiles, by the TPU kernel's
+    formulation (`pallas_blend._alpha_terms` + `_blend_core`). rows [B, G]
+    pair slots, px/py [B, P], t_run [B, P], done [B, P] bool."""
+    gd = gdata[rows]                                      # [B, G, NF]
+    t = {k: gd[:, :, f:f + 1] for k, f in (
+        ("mx", F_MX), ("my", F_MY), ("ca", F_CA), ("cb", F_CB),
+        ("cc", F_CC), ("op", F_OP))}
+    dx = t["mx"] - px[:, None, :]
+    dy = t["my"] - py[:, None, :]
+    power = -0.5 * (t["ca"] * dx * dx + t["cc"] * dy * dy) \
+        - t["cb"] * dx * dy
+    g = torch.exp(power)
+    alpha_raw = t["op"] * g
+    alpha = torch.clamp(alpha_raw, max=0.99)
+    skip = (power > 0.0) | (alpha_raw < (1.0 / 255.0))
+    one_m = torch.where(skip, torch.ones_like(alpha), 1.0 - alpha)
+    t_excl = t_run[:, None, :] * _cumprod_excl(one_m)
+    z = t_excl * one_m
+    alive = z >= 1e-4
+    contrib = (~skip) & alive & (~done[:, None, :])
+    w = torch.where(contrib, alpha * t_excl, torch.zeros_like(z))
+    t_new = torch.minimum(
+        t_run, torch.where(contrib, z, torch.full_like(z, 2.0)).amin(dim=1))
+    stop = (~skip) & (~alive)
+    feats = torch.cat([gd[:, :, F_R:F_DEPTH + 1],
+                       torch.ones_like(gd[:, :, :1]),
+                       gd[:, :, F_SEM:F_SEM + s_ch]], dim=2)   # [B, G, C]
+    return dict(t, dx=dx, dy=dy, g=g, one_m=one_m, t_excl=t_excl,
+                contrib=contrib, w=w, t_new=t_new, stop=stop, feats=feats)
+
+
+def _live_pairs(c, done):
+    """Real pairs (nonzero opacity) met by a pixel before or at its
+    stopping pair, in one replayed chunk."""
+    stopped_before = torch.cummax(c["stop"].to(torch.int8), dim=1) \
+        .values.bool()
+    stopped_before = torch.cat([torch.zeros_like(stopped_before[:, :1]),
+                                stopped_before[:, :-1]], dim=1)
+    real = c["op"] != 0
+    return (real & ~done[:, None, :] & ~stopped_before).sum()
+
+
+def _pixel_coords(tb, p, ntx, tx, ty):
+    px = (p % tx + (tb % ntx)[:, None] * tx).to(torch.float32)
+    py = (p // tx + (tb // ntx)[:, None] * ty).to(torch.float32)
+    return px, py
+
+
 def blend_forward_plain(gdata, chunk_meta, bg, *, ntx: int, nty: int,
                         tx: int, ty: int, s_ch: int,
                         count_live: bool = False):
@@ -140,70 +217,178 @@ def blend_forward_plain(gdata, chunk_meta, bg, *, ntx: int, nty: int,
     n_tiles = ntx * nty
     n_pix = tx * ty
     c_feat = 5 + s_ch
-    planes = torch.zeros((n_tiles, c_feat, n_pix), dtype=torch.float32,
-                         device=dev)
-    start, end = tile_chunk_ranges(chunk_meta, n_tiles)
-    nchunks = torch.where((start >= 0) & (end > start), end - start,
-                          torch.zeros_like(end))
-    order = torch.argsort(nchunks, descending=True, stable=True)
-    n_live_tiles = int((nchunks > 0).sum())
-    order = order[:n_live_tiles]
+    dt = gdata.dtype           # float32; the tests also run it in float64
+    planes = torch.zeros((n_tiles, c_feat, n_pix), dtype=dt, device=dev)
     p = torch.arange(n_pix, device=dev)
     gi = torch.arange(G_CHUNK, device=dev)
-    bg = bg.reshape(3).to(torch.float32)
-    batch = max(1, PLAIN_BATCH_ELEMS // (G_CHUNK * n_pix))
+    bg = bg.reshape(3).to(dt)
     live = torch.zeros((), dtype=torch.int64, device=dev)
-    for b0 in range(0, n_live_tiles, batch):
-        tb = order[b0:b0 + batch]
-        nb = nchunks[tb]
-        sb = start[tb].long()
-        px = (p % tx + (tb % ntx)[:, None] * tx).to(torch.float32)
-        py = (p // tx + (tb // ntx)[:, None] * ty).to(torch.float32)
+    for tb, nb, sb in _plain_batches(chunk_meta, n_tiles, n_pix):
+        px, py = _pixel_coords(tb, p, ntx, tx, ty)
         nt = tb.shape[0]
-        t_run = torch.ones((nt, n_pix), device=dev)
+        t_run = torch.ones((nt, n_pix), dtype=dt, device=dev)
         done = torch.zeros((nt, n_pix), dtype=torch.bool, device=dev)
-        acc = torch.zeros((nt, c_feat, n_pix), device=dev)
+        acc = torch.zeros((nt, c_feat, n_pix), dtype=dt, device=dev)
         for r in range(int(nb[0])):       # tiles sorted by chunk count
             ia = torch.nonzero(nb > r).flatten()
             rows = (sb[ia] + r)[:, None] * G_CHUNK + gi[None, :]
-            gd = gdata[rows]                              # [B, G, NF]
-            col = lambda f: gd[:, :, f:f + 1]             # noqa: E731
-            dx = col(F_MX) - px[ia][:, None, :]
-            dy = col(F_MY) - py[ia][:, None, :]
-            power = -0.5 * (col(F_CA) * dx * dx + col(F_CC) * dy * dy) \
-                - col(F_CB) * dx * dy
-            alpha_raw = col(F_OP) * torch.exp(power)
-            alpha = torch.clamp(alpha_raw, max=0.99)
-            skip = (power > 0.0) | (alpha_raw < (1.0 / 255.0))
-            one_m = torch.where(skip, torch.ones_like(alpha), 1.0 - alpha)
-            t_excl = t_run[ia][:, None, :] * _cumprod_excl(one_m)
-            z = t_excl * one_m
-            alive = z >= 1e-4
             d = done[ia]
-            contrib = (~skip) & alive & (~d[:, None, :])
-            w = torch.where(contrib, alpha * t_excl, torch.zeros_like(z))
-            feats = torch.cat([gd[:, :, F_R:F_DEPTH + 1],
-                               torch.ones_like(gd[:, :, :1]),
-                               gd[:, :, F_SEM:F_SEM + s_ch]], dim=2)
-            acc[ia] += torch.bmm(feats.transpose(1, 2), w)
-            t_run[ia] = torch.minimum(
-                t_run[ia], torch.where(contrib, z, torch.full_like(z, 2.0))
-                .amin(dim=1))
-            stop = (~skip) & (~alive)
+            c = _replay_chunk(gdata, rows, px[ia], py[ia], t_run[ia], d,
+                              s_ch)
+            acc[ia] += torch.bmm(c["feats"].transpose(1, 2), c["w"])
+            t_run[ia] = c["t_new"]
             if count_live:
-                stopped_before = torch.cummax(stop.to(torch.int8), dim=1) \
-                    .values.bool()
-                stopped_before = torch.cat(
-                    [torch.zeros_like(stopped_before[:, :1]),
-                     stopped_before[:, :-1]], dim=1)
-                real = col(F_OP) != 0
-                live += (real & ~d[:, None, :] & ~stopped_before).sum()
-            done[ia] = d | stop.any(dim=1)
+                live += _live_pairs(c, d)
+            done[ia] = d | c["stop"].any(dim=1)
         rgb = acc[:, 0:3] + t_run[:, None, :] * bg[None, :, None]
         planes[tb] = torch.cat([rgb, acc[:, 3:]], dim=1)
     if count_live:
         return planes, int(live)
     return planes
+
+
+def _check_planes(name, planes, n_tiles, s_ch, n_pix, dev):
+    if (planes.dtype != torch.float32 or planes.device != dev
+            or tuple(planes.shape) != (n_tiles, 5 + s_ch, n_pix)):
+        raise ValueError(f"blend_backward: {name} must be float32 "
+                         f"[{n_tiles}, {5 + s_ch}, {n_pix}] on {dev}")
+
+
+def blend_backward(gdata, chunk_meta, bg, out, dout, *, ntx: int, nty: int,
+                   tx: int, ty: int, s_ch: int, stat_width: int,
+                   stat_height: int) -> torch.Tensor:
+    """Per-slot gradients [P_pad, NF] in gdata's column layout from the
+    saved planes `out` and their cotangents `dout` ([ntx*nty, 5+S, tx*ty]).
+    `stat_width`/`stat_height` scale the AbsGS statistic (the physical
+    image). Slots of unwritten tiles and padding come back zero."""
+    global bwd_launches
+    n_tiles = ntx * nty
+    n_pix = tx * ty
+    nf = gdata.shape[1] if gdata.dim() == 2 else 0
+    threads = 256 if n_pix >= 256 else n_pix
+    _check(gdata, chunk_meta, bg, n_tiles, tx, ty, s_ch,
+           G_CHUNK * nf + (threads // 32) * G_CHUNK * (NF_BASE + s_ch)
+           + s_ch * n_pix, "blend_backward")
+    _check_planes("out", out, n_tiles, s_ch, n_pix, gdata.device)
+    _check_planes("dout", dout, n_tiles, s_ch, n_pix, gdata.device)
+    if gdata.device.type == "cpu":
+        return blend_backward_plain(
+            gdata, chunk_meta, bg, out, dout, ntx=ntx, nty=nty, tx=tx,
+            ty=ty, s_ch=s_ch, stat_width=stat_width, stat_height=stat_height)
+    if gdata.device.type != "cuda":
+        raise ValueError(f"blend_backward: unsupported device {gdata.device}")
+    gdata = gdata.contiguous()
+    out = out.contiguous()
+    dout = dout.contiguous()
+    bg = bg.reshape(3).contiguous()
+    start, end = tile_chunk_ranges(chunk_meta, n_tiles)
+    grad = torch.empty_like(gdata)
+    lib = cuda_build.library("blend_bwd")
+    fn = lib.grpg_blend_bwd
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(gdata.device).cuda_stream
+    with torch.cuda.device(gdata.device):
+        err = fn(gdata.data_ptr(), nf, chunk_meta.data_ptr(),
+                 chunk_meta.shape[0], start.data_ptr(), end.data_ptr(),
+                 bg.data_ptr(), out.data_ptr(), dout.data_ptr(),
+                 grad.data_ptr(), n_tiles, ntx, tx, ty, s_ch,
+                 0.5 * stat_width, 0.5 * stat_height, stream)
+    cuda_build.check(err, "blend_backward launch")
+    bwd_launches += 1
+    return grad
+
+
+def blend_backward_plain(gdata, chunk_meta, bg, out, dout, *, ntx: int,
+                         nty: int, tx: int, ty: int, s_ch: int,
+                         stat_width: int, stat_height: int) -> torch.Tensor:
+    """Plain PyTorch version of the blend backward. Replays the plain
+    forward chunk by chunk (so its masks are the plain forward's) and forms
+    the TPU kernel's per-pixel terms (`pallas_blend._make_bwd_kernel`):
+    e = feats . g, p_incl = running sum of w*e, dL/dalpha =
+    e*T - (tot_ebt - p_incl)/(1 - alpha), then sums them over the pixels."""
+    dev = gdata.device
+    n_tiles = ntx * nty
+    n_pix = tx * ty
+    grad = torch.zeros_like(gdata)
+    p = torch.arange(n_pix, device=dev)
+    gi = torch.arange(G_CHUNK, device=dev)
+    dt = gdata.dtype           # float32; the tests also run it in float64
+    bg = bg.reshape(3).to(dt)
+    half_w, half_h = 0.5 * stat_width, 0.5 * stat_height
+    for tb, nb, sb in _plain_batches(chunk_meta, n_tiles, n_pix):
+        px, py = _pixel_coords(tb, p, ntx, tx, ty)
+        nt = tb.shape[0]
+        outs = out[tb]                                    # [B, C, P]
+        g_pix = dout[tb]
+        t_final = 1.0 - outs[:, 4]
+        tot = torch.cat([outs[:, 0:3] - t_final[:, None, :]
+                         * bg[None, :, None], outs[:, 3:]], dim=1)
+        bg_dot = g_pix[:, 0] * bg[0] + g_pix[:, 1] * bg[1] \
+            + g_pix[:, 2] * bg[2]
+        tot_ebt = torch.sum(tot * g_pix, dim=1) + t_final * bg_dot
+        g_cols = torch.cat([g_pix[:, 0:4], g_pix[:, 5:]], dim=1)
+        t_run = torch.ones((nt, n_pix), dtype=dt, device=dev)
+        done = torch.zeros((nt, n_pix), dtype=torch.bool, device=dev)
+        pref = torch.zeros((nt, n_pix), dtype=dt, device=dev)
+        for r in range(int(nb[0])):
+            ia = torch.nonzero(nb > r).flatten()
+            rows = (sb[ia] + r)[:, None] * G_CHUNK + gi[None, :]
+            d = done[ia]
+            c = _replay_chunk(gdata, rows, px[ia], py[ia], t_run[ia], d,
+                              s_ch)
+            e = torch.bmm(c["feats"], g_pix[ia])          # [b, G, P]
+            w = c["w"]
+            p_incl = pref[ia][:, None, :] + torch.cumsum(w * e, dim=1)
+            dl_da = e * c["t_excl"] - (tot_ebt[ia][:, None, :] - p_incl) \
+                / c["one_m"]
+            dl_da = torch.where(c["contrib"], dl_da, torch.zeros_like(dl_da))
+            q2 = c["g"] * dl_da
+            q = c["op"] * q2
+            dx, dy = c["dx"], c["dy"]
+            gxp = q * (-(c["ca"] * dx + c["cb"] * dy))
+            gyp = q * (-(c["cc"] * dy + c["cb"] * dx))
+            absp = half_w * torch.abs(gxp) + half_h * torch.abs(gyp)
+            mw = torch.bmm(w, g_cols[ia].transpose(1, 2))  # [b, G, 4+S]
+            cols = torch.stack(
+                [gxp.sum(2), gyp.sum(2), (-0.5 * q * dx * dx).sum(2),
+                 (-q * dx * dy).sum(2), (-0.5 * q * dy * dy).sum(2),
+                 q2.sum(2)], dim=2)
+            gmat = torch.cat([cols, mw[:, :, :4], absp.sum(2)[:, :, None],
+                              mw[:, :, 4:]], dim=2)       # [b, G, 11+S]
+            grad[rows.reshape(-1), :NF_BASE + s_ch] = gmat.reshape(
+                -1, NF_BASE + s_ch)
+            t_run[ia] = c["t_new"]
+            pref[ia] = p_incl[:, -1, :]
+            done[ia] = d | c["stop"].any(dim=1)
+    return grad
+
+
+class _Blend(torch.autograd.Function):
+    """Blend with its hand-derived backward (`pallas_blend._make_blend`):
+    the forward saves (gdata, chunk_meta, bg, out), the backward returns
+    d_gdata in gdata's column layout."""
+
+    @staticmethod
+    def forward(ctx, gdata, chunk_meta, bg, cfg):
+        out = blend_forward(gdata, chunk_meta, bg, ntx=cfg["ntx"],
+                            nty=cfg["nty"], tx=cfg["tx"], ty=cfg["ty"],
+                            s_ch=cfg["s_ch"])
+        ctx.save_for_backward(gdata, chunk_meta, bg, out)
+        ctx.cfg = cfg
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        gdata, chunk_meta, bg, out = ctx.saved_tensors
+        d_gdata = blend_backward(gdata, chunk_meta, bg, out,
+                                 dout.contiguous(), **ctx.cfg)
+        return d_gdata, None, None, None
 
 
 def planes_to_image(planes, ntx: int, nty: int, height: int, width: int,
@@ -215,14 +400,19 @@ def planes_to_image(planes, ntx: int, nty: int, height: int, width: int,
 
 
 def blend_pairs(gdata, lists, bg, *, width: int, height: int,
-                s_ch: int = 0) -> torch.Tensor:
+                s_ch: int = 0, stat_width: int | None = None,
+                stat_height: int | None = None) -> torch.Tensor:
     """Image planes [5 + S, H, W] (rgb, depth, alpha, semantics) from the
     pair rows and their pair lists; tiles with no written block get the
-    background."""
+    background. Differentiable in `gdata` (kernels B and C on the card);
+    `stat_width`/`stat_height` (default: width/height) scale the AbsGS
+    statistic, the physical image's size for strip renders."""
     tx, ty = lists.tile_x, lists.tile_y
     ntx, nty = lists.n_tiles_x, lists.n_tiles_y
-    planes = blend_forward(gdata, lists.chunk_meta, bg.reshape(3), ntx=ntx,
-                           nty=nty, tx=tx, ty=ty, s_ch=s_ch)
+    cfg = dict(ntx=ntx, nty=nty, tx=tx, ty=ty, s_ch=s_ch,
+               stat_width=stat_width or width,
+               stat_height=stat_height or height)
+    planes = _Blend.apply(gdata, lists.chunk_meta, bg.reshape(3), cfg)
     nfo = planes.shape[1]
     bg_plane = torch.cat([bg.reshape(3),
                           torch.zeros(nfo - 3, dtype=planes.dtype,

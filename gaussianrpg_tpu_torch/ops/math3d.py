@@ -6,6 +6,8 @@ the JAX package to float32 rounding. Quaternion convention: (w, x, y, z).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -95,14 +97,20 @@ def quaternion_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def quaternion_slerp(q0: torch.Tensor, q1: torch.Tensor, t) -> torch.Tensor:
     """Shortest-arc spherical interpolation with a lerp fallback for
-    nearly parallel quaternions."""
+    nearly parallel quaternions. The arccos is taken of a safe argument
+    where the lerp branch is chosen, so its infinite derivative at |d| = 1
+    never meets the branch's zero cotangent (0 * inf = NaN); values are
+    unchanged. The JAX package does not do this, and its gradient of a
+    tracked rotation residual is NaN when the two tracklet rotations are
+    equal (ROADMAP, faults)."""
     t = torch.as_tensor(t, dtype=q0.dtype, device=q0.device)
     d = torch.sum(q0 * q1, dim=-1, keepdim=True)
     q1 = torch.where(d < 0.0, -q1, q1)
     d = torch.clamp(torch.abs(d), -1.0, 1.0)
-    theta = torch.arccos(d)
+    with torch.no_grad():
+        near = torch.sin(torch.arccos(d)) < 1e-6
+    theta = torch.arccos(torch.where(near, torch.zeros_like(d), d))
     sin_theta = torch.sin(theta)
-    near = sin_theta < 1e-6
     safe = torch.where(near, torch.ones_like(sin_theta), sin_theta)
     w0 = torch.where(near, 1.0 - t, torch.sin((1.0 - t) * theta) / safe)
     w1 = torch.where(near, t * torch.ones_like(theta),
@@ -129,6 +137,35 @@ def build_covariance(s: torch.Tensor, q: torch.Tensor,
     )
 
 
+def l1_abs(x: torch.Tensor) -> torch.Tensor:
+    """|x| for L1 terms, with derivative 1 at x == 0 as in the JAX package
+    (`torch.abs` gives 0 there). It matters where a term starts exactly at
+    its minimum, as an identity colour correction does."""
+    return torch.where(x >= 0, x, -x)
+
+
 def inverse_sigmoid(x: torch.Tensor) -> torch.Tensor:
     """log(x / (1 - x))."""
     return torch.log(x / (1.0 - x))
+
+
+def exp_lr_schedule(lr_init, lr_final, max_steps, lr_delay_steps=0,
+                    lr_delay_mult=1.0):
+    """Log-lerp learning-rate schedule with an optional sin-eased delay:
+    f(step) -> float, as `math3d.exp_lr_schedule` (evaluated in float32)."""
+    def schedule(step):
+        if lr_init == 0.0 and lr_final == 0.0:
+            return 0.0
+        step = torch.tensor(float(step), dtype=torch.float32)
+        t = torch.clamp(step / max_steps, 0.0, 1.0)
+        log_init = torch.log(torch.tensor(lr_init, dtype=torch.float32))
+        log_final = torch.log(torch.tensor(lr_final, dtype=torch.float32))
+        log_lerp = torch.exp(log_init * (1 - t) + log_final * t)
+        if lr_delay_steps > 0:
+            delay_rate = lr_delay_mult + (1 - lr_delay_mult) * torch.sin(
+                0.5 * math.pi * torch.clamp(step / lr_delay_steps, 0.0, 1.0))
+        else:
+            delay_rate = 1.0
+        return float(delay_rate * log_lerp)
+
+    return schedule

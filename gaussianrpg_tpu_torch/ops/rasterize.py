@@ -1,10 +1,16 @@
-"""Rasterizer entry point, eval path: primitive stage -> depth order -> tile
-binning -> pair gather -> blend forward (kernel B).
+"""Rasterizer entry point: primitive stage -> depth order -> tile binning
+-> pair gather -> blend (kernel B forward, kernel C backward).
 
-Counterpart of `gaussianrpg_tpu/ops/rasterize.py` with `train_mode=False`
-(no gradient hooks, no pair-gather VJPs, no `model_axis` sharding): same
-field-column layout, same binning inputs on both the emission and the
-marker path, same outputs.
+Counterpart of `gaussianrpg_tpu/ops/rasterize.py` (without `model_axis`
+sharding): same field-column layout, same binning inputs on both the
+emission and the marker path, same outputs. As in JAX, train mode is
+"gradient hooks given": `means2d_offset` (its gradient is the NDC-scale
+viewspace gradient) and `absgrad_sink` (its gradient is the AbsGS
+statistic, riding the F_RADIUS column). In train mode every pair gather
+goes through an autograd Function whose backward is the sort-free segment
+sum (`_PairGather`, `_PairGatherDerive`, `_PermTake`) instead of the
+`index_add_` scatter that autograd of `index_select` would use; the
+preprocess, SH and field assembly are differentiated by autograd.
 """
 from __future__ import annotations
 
@@ -22,6 +28,11 @@ from .sh import sh_to_rgb_clamped
 
 def _round_up(x, m):
     return (x + m - 1) // m * m
+
+
+DERIVE_GM = True  # emission path in train mode: derive the expansion index
+                  # in the gather's backward instead of riding it through
+                  # the sort (False = the ridden path, for cross-checks)
 
 
 class RasterOut(NamedTuple):
@@ -53,6 +64,125 @@ class FieldSet(NamedTuple):
 def _take8(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Row gather."""
     return x.index_select(0, idx.long())
+
+
+SCAN_BLOCK = 1024  # rows of one block of the two-level prefix sum
+
+
+def _column_prefix_sums(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sums of each column of x [P, C] over all P rows,
+    returned as [C, P]. Every column is cut into blocks of SCAN_BLOCK
+    rows, each block is scanned, and each block gets the running total of
+    the blocks before it: PyTorch's scan of a tall column runs one
+    sequential thread per column on the card (11 s for [32M, 16] down
+    dim 0), the blocked form is many short independent scans, and
+    deterministic. The same form runs on every device."""
+    p, c = x.shape
+    xt = x.t()
+    if p % SCAN_BLOCK:
+        xt = torch.cat([xt, xt.new_zeros((c, SCAN_BLOCK - p % SCAN_BLOCK))],
+                       dim=1)
+    blocks = xt.contiguous().view(c, -1, SCAN_BLOCK).cumsum(dim=2)
+    totals = blocks[:, :-1, -1].cumsum(dim=1)      # through each block
+    blocks[:, 1:] += totals[:, :, None]
+    return blocks.view(c, -1)[:, :p]
+
+
+def _segment_sum_expansion(d_gm, seg_offs, seg_area):
+    """Per-gaussian sums of contiguous expansion-order segments: one f32
+    prefix sum over the whole capacity and the difference at the segment
+    boundaries (segments are contiguous: offs[g] + area[g] == offs[g+1])."""
+    p = d_gm.shape[0]
+    ends = torch.clamp(torch.cat([seg_offs, (seg_offs[-1]
+                                             + seg_area[-1])[None]]), max=p)
+    cs = _column_prefix_sums(d_gm)                 # [NF, P]
+    at = cs.index_select(1, torch.clamp(ends - 1, min=0).long())
+    bounds = torch.where(ends[None, :] > 0, at, torch.zeros_like(at))
+    return (bounds[:, 1:] - bounds[:, :-1]).t().contiguous()   # [N, NF]
+
+
+def _unpermute_and_segment_sum(d_gdata, valid_f, pair_gm, seg_offs,
+                               seg_area):
+    """Tile-major pair cotangents -> per-gaussian sums: invert the slot
+    permutation with a stable sort of (gm, slot) (padding keyed last),
+    gather into expansion order, segment-sum."""
+    gm_key = torch.where(pair_gm >= 0, pair_gm,
+                         torch.full_like(pair_gm, 0x7FFFFFFF))
+    pos = torch.sort(gm_key, stable=True).indices
+    d_tm = d_gdata * valid_f[:, None]
+    return _segment_sum_expansion(d_tm.index_select(0, pos), seg_offs,
+                                  seg_area)
+
+
+class _PairGather(torch.autograd.Function):
+    """Pair rows [P, NF] from the field table whose backward is the
+    sort-free segment sum over the ridden expansion index `pair_gm`
+    (`rasterize._pair_gather`)."""
+
+    @staticmethod
+    def forward(ctx, fields, src, valid_f, pair_gm, seg_offs, seg_area):
+        ctx.save_for_backward(valid_f, pair_gm, seg_offs, seg_area)
+        return _take8(fields, src) * valid_f[:, None]
+
+    @staticmethod
+    def backward(ctx, d_gdata):
+        valid_f, pair_gm, seg_offs, seg_area = ctx.saved_tensors
+        d = _unpermute_and_segment_sum(d_gdata.contiguous(), valid_f,
+                                       pair_gm, seg_offs, seg_area)
+        return d, None, None, None, None, None
+
+
+def derive_pair_gm(packed, pair_tile, ntx: int):
+    """Expansion index of each slot from the exact-int f32 columns
+    (x0*2048 + y0, rect width, seg offset) riding its row and its tile:
+    gm = offs + (ty - y0)*rw + (tx - x0); -1 for padding."""
+    xy = packed[:, 0].to(torch.int32)
+    x0 = xy >> 11
+    y0 = xy & 0x7FF
+    rw = packed[:, 1].to(torch.int32)
+    offs = packed[:, 2].to(torch.int32)
+    ty = torch.div(pair_tile, ntx, rounding_mode="floor")
+    tx = pair_tile - ty * ntx
+    gm = offs + (ty - y0) * rw + (tx - x0)
+    return torch.where(pair_tile >= 0, gm, torch.full_like(gm, -1))
+
+
+class _PairGatherDerive(torch.autograd.Function):
+    """Pair gather whose backward derives gm instead of consuming a ridden
+    one (`rasterize._pair_gather_derive_fn`): the rect and segment offset
+    ride the wide row gather as exact-int f32 columns [col0, col0+3)."""
+
+    @staticmethod
+    def forward(ctx, fields_ext, src, valid_f, pair_tile, seg_offs,
+                seg_area, ntx, col0):
+        out = _take8(fields_ext, src) * valid_f[:, None]
+        packed = out[:, col0:col0 + 3].detach().clone()
+        ctx.save_for_backward(valid_f, pair_tile, packed, seg_offs, seg_area)
+        ctx.ntx = ntx
+        return out
+
+    @staticmethod
+    def backward(ctx, d_gdata):
+        valid_f, pair_tile, packed, seg_offs, seg_area = ctx.saved_tensors
+        gm = derive_pair_gm(packed, pair_tile, ctx.ntx)
+        d = _unpermute_and_segment_sum(d_gdata.contiguous(), valid_f, gm,
+                                       seg_offs, seg_area)
+        return d, None, None, None, None, None, None, None
+
+
+class _PermTake(torch.autograd.Function):
+    """Row gather by a permutation whose backward is the gather by the
+    inverse permutation (`rasterize._perm_take`)."""
+
+    @staticmethod
+    def forward(ctx, x, perm, inv_perm):
+        ctx.save_for_backward(inv_perm)
+        return x.index_select(0, perm)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (inv_perm,) = ctx.saved_tensors
+        return ct.index_select(0, inv_perm), None, None
 
 
 def _default_geometry(means3d, scales, rotations):
@@ -95,12 +225,17 @@ def primitive_fields(
     rotations: torch.Tensor | None = None,
     cov3d_precomp: torch.Tensor | None = None,
     scale_modifier: float = 1.0,
+    means2d_offset: torch.Tensor | None = None,
+    absgrad_sink: torch.Tensor | None = None,
     active_mask: torch.Tensor | None = None,
     tile_x: int = TILE_X,
     tile_y: int = TILE_Y,
     tight_rect: bool = True,
 ) -> FieldSet:
-    """O(N) per-primitive stage: preprocess + SH + field-column assembly."""
+    """O(N) per-primitive stage: preprocess + SH + field-column assembly.
+    The hooks (zeros) enter the mean columns (`means2d_offset`, scaled to
+    pixels by the physical image size) and the radius column
+    (`absgrad_sink`, whose value the blend never reads)."""
     H, W = camera.height, camera.width
     n = means3d.shape[0]
     opacities = opacities.reshape(-1)
@@ -119,6 +254,13 @@ def primitive_fields(
             torch.sum(dirs * dirs, -1, keepdim=True), min=1e-24))
         colors, _ = sh_to_rgb_clamped(sh_degree, shs, dirs)
 
+    means2d = pre.means2d
+    if means2d_offset is not None:
+        fw = camera.full_width or W
+        fh = camera.full_height or H
+        means2d = means2d + means2d_offset * torch.tensor(
+            [0.5 * fw, 0.5 * fh], dtype=means2d.dtype, device=means2d.device)
+
     radii = pre.radii
     if active_mask is not None:
         radii = torch.where(active_mask, radii, torch.zeros_like(radii))
@@ -129,9 +271,12 @@ def primitive_fields(
         s_ch = semantics.shape[-1]
         sem_list = [semantics]
 
+    radius_col = radii.to(torch.float32)
+    if absgrad_sink is not None:
+        radius_col = radius_col + absgrad_sink
     fields = torch.cat(
-        [pre.means2d, pre.conics, opacities[:, None], colors,
-         pre.depths[:, None], radii.to(torch.float32)[:, None]] + sem_list,
+        [means2d, pre.conics, opacities[:, None], colors,
+         pre.depths[:, None], radius_col[:, None]] + sem_list,
         dim=1)
     nf_cols = _round_up(NF_BASE + s_ch, 8)
     if fields.shape[1] < nf_cols:
@@ -151,21 +296,24 @@ def pair_rows(
     width: int,
     height: int,
     capacity: int,
+    train_mode: bool = False,
     sub_chunks: int | None = None,
     tail_cap: int | None = None,
     big_cap: int | None = None,
     emit_k: int | None = None,
 ):
     """Depth order, tile binning and pair gather: (gdata [P_pad, NF],
-    PairLists), the blend kernel's inputs."""
+    PairLists), the blend kernel's inputs. In train mode the gathers carry
+    the segment-sum backward."""
     H, W = height, width
     n, nf = fs.fields.shape
     dev = fs.fields.device
     visible = fs.radii > 0
-    key = torch.where(visible, fs.depths,
+    key = torch.where(visible, fs.depths.detach(),
                       torch.full_like(fs.depths, float("inf")))
     order = torch.argsort(key, stable=True)
     s_ch = fs.s_ch
+    col0 = NF_BASE + s_ch
 
     ntx, nty = binning.tile_grid_dims(W, H, fs.tile_x, fs.tile_y)
     if binning.emit_active(n, ntx * nty):
@@ -176,11 +324,25 @@ def pair_rows(
         zero = torch.zeros_like(fs.rect_min)
         rect_min = torch.where(visible[:, None], fs.rect_min, zero)
         rect_max = torch.where(visible[:, None], fs.rect_max, zero)
+        # derive-gm: with 3 spare field columns the expansion index is
+        # rebuilt in the gather's backward instead of riding the sort
+        derive = (DERIVE_GM and train_mode and nf - col0 >= 3
+                  and ntx < 2048 and nty < 2048 and capacity < (1 << 24))
         lists = binning.build_pair_lists(
-            rect_min, rect_max, visible, W, H, capacity, tile_x=fs.tile_x,
-            tile_y=fs.tile_y, sub_chunks=sub_chunks, rank=rank,
-            tail_cap=tail_cap, big_cap=big_cap, emit_k=emit_k)
+            rect_min, rect_max, visible, W, H, capacity, ride_gm=train_mode,
+            tile_x=fs.tile_x, tile_y=fs.tile_y, sub_chunks=sub_chunks,
+            rank=rank, tail_cap=tail_cap, big_cap=big_cap,
+            derive_gm=derive, emit_k=emit_k)
         fields_sorted = fs.fields
+        if derive and lists.pair_tile is not None:
+            packed = torch.stack(
+                [(rect_min[:, 0] * 2048 + rect_min[:, 1]).to(fs.fields.dtype),
+                 torch.clamp(rect_max[:, 0] - rect_min[:, 0], min=0).to(
+                     fs.fields.dtype),
+                 lists.seg_offs.to(fs.fields.dtype)], dim=1)
+            fields_sorted = torch.cat(
+                [fs.fields[:, :col0], packed, fs.fields[:, col0 + 3:]],
+                dim=1)
     else:
         # marker path: the tile rect rides the depth-sorted row take in the
         # field table's spare columns (or four appended ones)
@@ -198,19 +360,34 @@ def pair_rows(
             if pad:
                 ext = torch.cat([ext, torch.zeros((n, pad), dtype=ext.dtype,
                                                   device=dev)], dim=1)
-        ext_sorted = ext.index_select(0, order)
-        rect_s = ext_sorted[:, rect_col:rect_col + 4].to(torch.int32)
+        if train_mode:
+            inv_order = torch.empty_like(order)
+            inv_order[order] = torch.arange(n, device=dev)
+            ext_sorted = _PermTake.apply(ext, order, inv_order)
+        else:
+            ext_sorted = ext.index_select(0, order)
+        rect_s = ext_sorted[:, rect_col:rect_col + 4].detach().to(
+            torch.int32)
         rect_min_s, rect_max_s = rect_s[:, 0:2], rect_s[:, 2:4]
         visible_s = (rect_max_s[:, 0] > rect_min_s[:, 0]) & (
             rect_max_s[:, 1] > rect_min_s[:, 1])
         fields_sorted = ext_sorted if spare >= 4 else ext_sorted[:, :nf]
         lists = binning.build_pair_lists(
             rect_min_s, rect_max_s, visible_s, W, H, capacity,
-            tile_x=fs.tile_x, tile_y=fs.tile_y, sub_chunks=sub_chunks)
+            ride_gm=train_mode, tile_x=fs.tile_x, tile_y=fs.tile_y,
+            sub_chunks=sub_chunks)
 
     src = torch.clamp(lists.pair_src, min=0)
     valid = lists.pair_valid.to(fs.fields.dtype)
-    gdata = (_take8(fields_sorted, src) * valid[:, None]).contiguous()
+    if train_mode and lists.pair_tile is not None:
+        gdata = _PairGatherDerive.apply(fields_sorted, src, valid,
+                                        lists.pair_tile, lists.seg_offs,
+                                        lists.seg_area, ntx, col0)
+    elif train_mode:
+        gdata = _PairGather.apply(fields_sorted, src, valid, lists.pair_gm,
+                                  lists.seg_offs, lists.seg_area)
+    else:
+        gdata = (_take8(fields_sorted, src) * valid[:, None]).contiguous()
     return gdata, lists
 
 
@@ -221,7 +398,10 @@ def blend_fields(
     height: int,
     bg_color: torch.Tensor,
     capacity: int,
+    train_mode: bool = False,
     sub_chunks: int | None = None,
+    stat_width: int | None = None,
+    stat_height: int | None = None,
     tail_cap: int | None = None,
     big_cap: int | None = None,
     emit_k: int | None = None,
@@ -229,11 +409,12 @@ def blend_fields(
     """O(P) tile stage: depth order, tile binning, pair gather, blend."""
     s_ch = fs.s_ch
     gdata, lists = pair_rows(fs, width=width, height=height,
-                             capacity=capacity, sub_chunks=sub_chunks,
-                             tail_cap=tail_cap, big_cap=big_cap,
-                             emit_k=emit_k)
+                             capacity=capacity, train_mode=train_mode,
+                             sub_chunks=sub_chunks, tail_cap=tail_cap,
+                             big_cap=big_cap, emit_k=emit_k)
     planes = blend_pairs(gdata, lists, bg_color.reshape(3).to(torch.float32),
-                         width=width, height=height, s_ch=s_ch)
+                         width=width, height=height, s_ch=s_ch,
+                         stat_width=stat_width, stat_height=stat_height)
     return RasterOut(
         color=planes[0:3],
         depth=planes[3:4],
@@ -313,7 +494,6 @@ def suggest_binning_sizes(fs: FieldSet, *, width: int, height: int,
     return BinningSizes(cap, tail_cap, big_cap, k)
 
 
-@torch.no_grad()
 def rasterize(
     means3d: torch.Tensor,
     opacities: torch.Tensor,
@@ -328,6 +508,8 @@ def rasterize(
     rotations: torch.Tensor | None = None,
     cov3d_precomp: torch.Tensor | None = None,
     scale_modifier: float = 1.0,
+    means2d_offset: torch.Tensor | None = None,
+    absgrad_sink: torch.Tensor | None = None,
     active_mask: torch.Tensor | None = None,
     capacity: int = 1 << 19,
     tile_x: int = TILE_X,
@@ -339,22 +521,29 @@ def rasterize(
     emit_k: int | None = None,
     device=None,
 ) -> RasterOut:
-    """Render Gaussians (eval). means3d [N,3]; opacities [N] or [N,1]
-    (activated); colors [N,3] or shs [N,K,3]; semantics [N,S]; scales
-    [N,3] + rotations [N,4] or cov3d_precomp [N,6]. `capacity` is the
+    """Render Gaussians, differentiable in every float input. means3d
+    [N,3]; opacities [N] or [N,1] (activated); colors [N,3] or shs
+    [N,K,3]; semantics [N,S]; scales [N,3] + rotations [N,4] or
+    cov3d_precomp [N,6]. Training passes the hooks, zeros
+    `means2d_offset` [N,2] and `absgrad_sink` [N]: their gradients are
+    the NDC viewspace gradient and the AbsGS statistic. `capacity` is the
     static padded pair capacity: check `overflow` and grow it. All tensors
     must lie on `device` (CUDA unless given)."""
     dev = resolve_device(device)
     if not on_device(means3d, dev):
         raise ValueError(f"rasterize: inputs on {means3d.device}, "
                          f"device is {dev}")
+    train_mode = means2d_offset is not None or absgrad_sink is not None
     fs = primitive_fields(
         means3d, opacities, camera=camera, colors=colors, shs=shs,
         sh_degree=sh_degree, semantics=semantics, scales=scales,
         rotations=rotations, cov3d_precomp=cov3d_precomp,
-        scale_modifier=scale_modifier, active_mask=active_mask,
+        scale_modifier=scale_modifier, means2d_offset=means2d_offset,
+        absgrad_sink=absgrad_sink, active_mask=active_mask,
         tile_x=tile_x, tile_y=tile_y, tight_rect=tight_rect)
     return blend_fields(fs, width=camera.width, height=camera.height,
                         bg_color=bg_color, capacity=capacity,
-                        sub_chunks=sub_chunks, tail_cap=tail_cap,
+                        train_mode=train_mode, sub_chunks=sub_chunks,
+                        stat_width=camera.full_width,
+                        stat_height=camera.full_height, tail_cap=tail_cap,
                         big_cap=big_cap, emit_k=emit_k)

@@ -1,9 +1,11 @@
 """Composite scene renderer: scene graph -> rasterizer -> sky -> colour
 correction.
 
-Counterpart of `gaussianrpg_tpu/render/renderer.py`, eval path
-(`train_mode=False`): `RenderOptions`, `RenderResult`, `render_scene`,
-`render_until_fit` and `probe_scene_capacity`.
+Counterpart of `gaussianrpg_tpu/render/renderer.py`: `RenderOptions`,
+`RenderResult`, `render_scene` (eval under `torch.no_grad`; train mode
+differentiable, with the gradient hooks, the actor flip and the sky ray
+jitter drawn from a `torch.Generator`), `render_until_fit` and
+`probe_scene_capacity`.
 """
 from __future__ import annotations
 
@@ -99,19 +101,37 @@ def probe_scene_capacity(models: SceneModels, meta: SceneMeta,
                            emit_k=ek)
 
 
-@torch.no_grad()
 def render_scene(models: SceneModels, meta: SceneMeta, arrays: SceneArrays,
                  camera, *, active_sh_degree: int,
                  options: RenderOptions = RenderOptions(),
                  include_background: bool = True,
-                 include_objects: bool = True,
+                 include_objects: bool = True, train_mode: bool = False,
+                 generator: torch.Generator | None = None,
+                 means2d_offset: torch.Tensor | None = None,
+                 absgrad_sink: torch.Tensor | None = None,
                  device=None) -> RenderResult:
-    """Render one camera (eval). The scene and camera must lie on
-    `device` (CUDA unless given)."""
+    """Render one camera. The scene and camera must lie on `device` (CUDA
+    unless given). Eval runs without autograd; for training pass
+    `train_mode=True`, a `generator` (actor flip, then sky ray jitter) and
+    zeros `means2d_offset` [N_total, 2] / `absgrad_sink` [N_total], whose
+    gradients are the densification statistics."""
+    if train_mode:
+        return _render(models, meta, arrays, camera, active_sh_degree,
+                       options, include_background, include_objects, True,
+                       generator, means2d_offset, absgrad_sink, device)
+    with torch.no_grad():
+        return _render(models, meta, arrays, camera, active_sh_degree,
+                       options, include_background, include_objects, False,
+                       None, None, None, device)
+
+
+def _render(models, meta, arrays, camera, active_sh_degree, options,
+            include_background, include_objects, train_mode, generator,
+            means2d_offset, absgrad_sink, device) -> RenderResult:
     dev = resolve_device(device)
     scene = compose(models, meta, arrays, camera, active_sh_degree,
-                    include_background=include_background,
-                    include_objects=include_objects)
+                    flip=generator, include_background=include_background,
+                    include_objects=include_objects, train_mode=train_mode)
     bg = (torch.ones(3, device=dev) if options.white_background
           else torch.zeros(3, device=dev))
     features = scene.semantics
@@ -126,6 +146,7 @@ def render_scene(models: SceneModels, meta: SceneMeta, arrays: SceneArrays,
         scene.means3d, scene.opacity, camera=camera, bg_color=bg,
         colors=scene.colors, scales=scene.scales, rotations=scene.rotations,
         semantics=features, scale_modifier=options.scaling_modifier,
+        means2d_offset=means2d_offset, absgrad_sink=absgrad_sink,
         active_mask=scene.mask, capacity=options.capacity,
         tile_x=options.tile_x, tile_y=options.tile_y,
         sub_chunks=options.sub_chunks, tail_cap=options.tail_cap,
@@ -134,10 +155,12 @@ def render_scene(models: SceneModels, meta: SceneMeta, arrays: SceneArrays,
     rgb = out.color
     acc = out.alpha
     if meta.include_sky and models.sky is not None:
-        rgb = rgb + render_sky(models.sky, camera) * (1.0 - acc)
+        sky = render_sky(models.sky, camera,
+                         generator if train_mode else None)
+        rgb = rgb + sky * (1.0 - acc.detach())
     if meta.use_color_correction and models.color_correction is not None:
         rgb = apply_color_correction(models.color_correction, camera, rgb)
-    if options.clamp_output:
+    if options.clamp_output and not train_mode:
         rgb = torch.clamp(rgb, 0.0, 1.0)
 
     rendered_normals = None

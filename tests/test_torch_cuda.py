@@ -1,6 +1,7 @@
 """Card-only tests of the port's CUDA kernels against their plain PyTorch
-versions (kernel A: fused cummax, kernel B: blend forward), plus one frame
-through `rasterize` on the card against the CPU path.
+versions (kernel A: fused cummax, kernel B: blend forward, kernel C: blend
+backward), plus one frame and its gradients through `rasterize` on the
+card against the CPU path.
 
 They skip without a CUDA card. This file imports neither JAX nor the JAX
 package, so on a machine with the card and no JAX it runs alone:
@@ -170,3 +171,124 @@ def test_rasterize_cuda_matches_cpu(cuda, tx, ty, emit, monkeypatch):
     pa = torch.cat([a.color, a.depth, a.alpha, a.semantic]).reshape(10, -1)
     pb = torch.cat([b.color, b.depth, b.alpha, b.semantic]).cpu()
     _assert_planes_close(pb.reshape(10, -1)[None], pa[None], 5)
+
+
+def _rel_err(got, ref):
+    return float((got - ref).abs().max() / (ref.abs().max() + 1e-12))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tx,ty,s_ch,sub", [(16, 16, 0, 1), (16, 16, 5, 2),
+                                            (64, 32, 0, 1), (64, 32, 3, 2),
+                                            (32, 16, 5, 1), (16, 8, 0, 1)])
+def test_blend_backward_kernel_matches_plain(cuda, tx, ty, s_ch, sub):
+    """Kernel C against the plain backward, each on its own forward's
+    planes: every gradient column group within 5e-5 of its max."""
+    W, H = 160, 96
+    cam, means, t = _scene(1500, W, H, 7, cuda)
+    fs = primitive_fields(
+        means, t["opacities"], camera=cam, colors=t["colors"],
+        scales=t["scales"], rotations=t["rotations"],
+        semantics=t["semantics"][:, :s_ch] if s_ch else None, tile_x=tx,
+        tile_y=ty)
+    gdata, lists = pair_rows(fs, width=W, height=H, capacity=1 << 16,
+                             sub_chunks=sub)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=cuda)
+    kw = dict(ntx=lists.n_tiles_x, nty=lists.n_tiles_y, tx=tx, ty=ty,
+              s_ch=s_ch)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    out_k = blend.blend_forward(gdata, lists.chunk_meta, bg, **kw)
+    out_p = blend.blend_forward_plain(gdata, lists.chunk_meta, bg, **kw)
+    dout = torch.randn(out_k.shape, generator=gen, device=cuda)
+    n0 = blend.bwd_launches
+    got = blend.blend_backward(gdata, lists.chunk_meta, bg, out_k, dout,
+                               stat_width=W, stat_height=H, **kw)
+    torch.cuda.synchronize()
+    assert blend.bwd_launches == n0 + 1
+    ref = blend.blend_backward_plain(gdata, lists.chunk_meta, bg, out_p,
+                                     dout, stat_width=W, stat_height=H, **kw)
+    for cols in ([0, 1], [2, 3, 4], [5], [6, 7, 8], [9], [10],
+                 list(range(11, 11 + s_ch))):
+        if cols:
+            assert _rel_err(got[:, cols], ref[:, cols]) < 5e-5, cols
+    assert not got[:, 11 + s_ch:].any()
+    assert not got[~lists.pair_valid].any()
+
+
+@pytest.mark.cuda
+def test_blend_backward_kernel_zeroes_unowned_slots(cuda):
+    """An overflowed capacity: slots of tiles whose block is not written
+    come back zero (their planes are not read)."""
+    W, H = 160, 96
+    cam, means, t = _scene(1500, W, H, 8, cuda)
+    fs = primitive_fields(means, t["opacities"], camera=cam,
+                          colors=t["colors"], scales=t["scales"],
+                          rotations=t["rotations"])
+    gdata, lists = pair_rows(fs, width=W, height=H, capacity=2048)
+    assert bool(lists.overflowed)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=cuda)
+    kw = dict(ntx=lists.n_tiles_x, nty=lists.n_tiles_y, tx=16, ty=16,
+              s_ch=0)
+    out = blend.blend_forward(gdata, lists.chunk_meta, bg, **kw)
+    dout = torch.ones_like(out)
+    got = blend.blend_backward(gdata, lists.chunk_meta, bg, out, dout,
+                               stat_width=W, stat_height=H, **kw)
+    ref = blend.blend_backward_plain(
+        gdata, lists.chunk_meta, bg,
+        blend.blend_forward_plain(gdata, lists.chunk_meta, bg, **kw), dout,
+        stat_width=W, stat_height=H, **kw)
+    assert torch.isfinite(got).all()
+    assert _rel_err(got, ref) < 5e-5
+    start, end = blend.tile_chunk_ranges(lists.chunk_meta,
+                                         kw["ntx"] * kw["nty"])
+    owned = torch.zeros(lists.chunk_meta.shape[0], dtype=torch.bool,
+                        device=cuda)
+    for s, e in zip(start.tolist(), end.tolist()):
+        if s >= 0 and e > s:
+            owned[s:e] = True
+    assert not got[~owned.repeat_interleave(128)].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tx,ty,emit", [(16, 16, True), (16, 16, False),
+                                        (64, 32, True)])
+def test_rasterize_gradients_cuda_match_cpu(cuda, tx, ty, emit,
+                                            monkeypatch):
+    """Train-mode `rasterize` (hooks given) on the card against the CPU
+    path: gradients of means, opacity, colours and the two hooks."""
+    monkeypatch.setattr(binning, "EMIT_PAIRS", emit)
+    W, H = 128, 96
+    res = {}
+    for dev in ("cpu", cuda):
+        cam, means, t = _scene(2000, W, H, 3, dev)
+        args = [means.requires_grad_(True),
+                t.pop("opacities").requires_grad_(True),
+                t.pop("colors").requires_grad_(True)]
+        n = means.shape[0]
+        hooks = [torch.zeros((n, 2), device=dev, requires_grad=True),
+                 torch.zeros((n,), device=dev, requires_grad=True)]
+        out = rasterize(
+            args[0], args[1], camera=cam, colors=args[2],
+            bg_color=torch.tensor([0.1, 0.2, 0.3], device=dev),
+            capacity=1 << 16, tile_x=tx, tile_y=ty, device=dev,
+            means2d_offset=hooks[0], absgrad_sink=hooks[1], **t)
+        loss = (out.color ** 2).sum() + (out.depth ** 2).sum()
+        res[str(dev)] = [x.cpu() for x in
+                         torch.autograd.grad(loss, args + hooks)]
+    for a, b in zip(res["cpu"], res["cuda"]):
+        assert _rel_err(b, a) < 5e-5
+
+
+@pytest.mark.cuda
+def test_blocked_prefix_sums_on_card(cuda):
+    """The segment sum's column prefix sums take the blocked form on the
+    card; against a float64 cumulative sum (a capacity that is not a
+    multiple of the block)."""
+    from gaussianrpg_tpu_torch.ops import rasterize as R
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((65536 * 3 + 128, 16), generator=gen, device=cuda)
+    got = R._column_prefix_sums(x)
+    ref = torch.cumsum(x.double(), dim=0).t()
+    assert got.shape == (16, x.shape[0])
+    assert torch.allclose(got.double(), ref, rtol=1e-5, atol=1e-2)
