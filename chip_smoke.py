@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, one JSON line each (any failure ends the run with exit code 1):
-  build   compile the three CUDA kernels from gaussianrpg_tpu_torch/csrc
+  build   compile the seven CUDA sources of gaussianrpg_tpu_torch/csrc
           (one nvcc per source, in parallel) into build/kernels;
   kernel  hold each kernel against its plain PyTorch version on the card
           at the main path's shapes: the blend forward (kernel B) and the
@@ -13,8 +13,22 @@ Phases, one JSON line each (any failure ends the run with exit code 1):
           on the frozen bench scene's pair lists (600k Gaussians,
           1066x1600) at 64x32 and 16x16 tiles with S=0 and S=3; the fused
           cummax (kernel A) at the 16x16 capacity with k=1 and k=2. Prints
-          the errors, tolerance, kernel / plain / library times (CUDA
-          events) and the bound;
+          the errors, tolerance, kernel / plain / library times and the
+          bound. Every time in the script is a device time: CUDA events
+          around calls queued behind a spin kernel
+          (`tools/_timing.device_ms`);
+  tools   the port's microbenchmarks (`gaussianrpg_tpu_torch/tools/`, the
+          counterparts of the repo's `tools/` Pallas kernels) at full size:
+          each tool's `run()` with its kernel's launches counted from zero,
+          then each of the five kernels against its plain version (the
+          gather bit for bit on random rows and on the 16x16 frame's pair
+          rows, with the kernels that it and `index_select` launch read
+          from a profiler trace; the stripped blend forms' planes and
+          per-tile sums of every staged chunk, the floor sums and
+          mm_orient within 1e-5 of the float64 result's max on the
+          written blocks; mm_orient on continuous random operands, where
+          a control that rounds its operands to TF32 must fail that
+          limit), with kernel / plain / library times and bounds;
   small   one small frame on the card against the same frame through the
           port's CPU path (the plain versions the CPU tests hold against
           the JAX package);
@@ -41,9 +55,11 @@ Phases, one JSON line each (any failure ends the run with exit code 1):
           active counts, retries, launches, peak memory), and `python -m
           gaussianrpg_tpu_torch.apps.train --synthetic --iterations 30`
           in a subprocess.
-The line before the last is the kernel table ({"kernels": [...]}, launch
-counts summed over the closed loop, train_frame and train runs, each
-counted from zero); the last line is the device verdict.
+The line before the last is the kernel table ({"kernels": [...]}: kernels
+A, B and C with their launches summed over the closed loop, train_frame
+and train runs, the five tool kernels with their launches in the tools'
+runs, each counted from zero); the card's name and power limit are printed
+first and again before it; the last line is the device verdict.
 Needs CUDA: without it (or without the package beside it) the script
 exits non-zero and prints no verdict.
 """
@@ -89,20 +105,6 @@ def check(cond, phase, msg):
     if not cond:
         emit({"phase": phase, "ok": False, "error": msg})
         raise PhaseFailed(f"{phase}: {msg}")
-
-
-def cuda_ms(torch, fn, reps, warmup=1):
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
 
 
 def bound(bytes_moved, ops):
@@ -153,6 +155,8 @@ def check_blend_bwd(torch, blend, gdata, lists, bg, kern, plain, live, kw,
     """Kernel C on kernel B's planes against the plain backward on the
     plain forward's planes (each backward replays its own forward), with
     one seeded random cotangent of the planes."""
+    from gaussianrpg_tpu_torch.tools._timing import device_ms
+
     gen = torch.Generator(device=gdata.device).manual_seed(seed)
     dout = torch.randn(kern.shape, generator=gen, device=gdata.device)
     cm = lists.chunk_meta
@@ -172,8 +176,8 @@ def check_blend_bwd(torch, blend, gdata, lists, bg, kern, plain, live, kw,
             for name, cols in grad_groups(s_ch)}
     rest_zero = not bool(got[:, 11 + s_ch:].any()) and not bool(
         got[~lists.pair_valid].any())
-    ms = cuda_ms(torch, run_kernel, reps=5)
-    plain_ms = cuda_ms(torch, run_plain, reps=1, warmup=0)
+    ms = device_ms(run_kernel, reps=5)
+    plain_ms = device_ms(run_plain, reps=1, warmup=0)
     nf = gdata.shape[1]
     n_pix = kw["tx"] * kw["ty"]
     nbytes = (raw * nf * 4 + cm.numel() * 4
@@ -201,6 +205,7 @@ def phase_kernels(torch):
     from gaussianrpg_tpu_torch.ops.rasterize import (pair_rows,
                                                      primitive_fields,
                                                      suggest_binning_sizes)
+    from gaussianrpg_tpu_torch.tools._timing import device_ms, kernel_trace
     from gaussianrpg_tpu_torch.utils.synthetic import build_frozen_scene
 
     dev = torch.device("cuda")
@@ -238,9 +243,9 @@ def phase_kernels(torch):
                                                     count_live=True, **kw)
             err, outliers, pixels = compare_planes(
                 torch, kern, plain, lists.tile_nonempty, s_ch)
-            ms = cuda_ms(torch, run_kernel, reps=10)
-            plain_ms = cuda_ms(torch, lambda: blend.blend_forward_plain(
-                gdata, cm, bg, **kw), reps=1)
+            ms = device_ms(run_kernel, reps=10)
+            plain_ms = device_ms(lambda: blend.blend_forward_plain(
+                gdata, cm, bg, **kw), reps=1, warmup=0)
             raw = int(lists.raw_total)
             written = int(lists.tile_nonempty.sum())
             nbytes = (raw * gdata.shape[1] * 4 + cm.numel() * 4
@@ -285,20 +290,298 @@ def phase_kernels(torch):
             err = max(err, max(int((a.long() - b.long()).abs().max())
                                for a, b in zip(got, ref)))
         stacked = torch.stack(marks)
-        ms = cuda_ms(torch, lambda: scan.fused_cummax(marks), reps=20)
-        plain_ms = cuda_ms(torch, lambda: scan.fused_cummax_plain(marks),
+        ms = device_ms(lambda: scan.fused_cummax(marks), reps=20)
+        plain_ms = device_ms(lambda: scan.fused_cummax_plain(marks),
+                             reps=20)
+        lib_ms = device_ms(lambda: torch.cummax(stacked, dim=1),
                            reps=20)
-        lib_ms = cuda_ms(torch, lambda: torch.cummax(stacked, dim=1),
-                         reps=20)
+        # the same calls' kernels from a profiler trace: a second reading
+        trace = kernel_trace(lambda: scan.fused_cummax(marks), reps=20)
         b_ms, b_by = bound(8 * k * p, 0)
         rec = dict(phase="kernel", kernel="cummax", k=k, p=p,
                    max_abs_err=err, tolerance="exact", ms=ms,
                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                   bound_by=b_by, ok=err == 0)
+                   bound_by=b_by, trace_ms=sum(t["ms_per_call"]
+                                               for t in trace),
+                   trace=trace, ok=err == 0)
         emit(rec)
         check(err == 0, "kernel", f"fused_cummax k={k} disagrees")
         out["cummax"][k] = rec
     out["scene"] = (cam, (means, opac, colors, scales, quats), H, W)
+    return out
+
+
+TOOLS_RTOL = 1e-5   # floor sums, stripped blend, mm_orient: of the max
+# (name in the kernel table, tool module, source, the TPU kernel it replaces)
+TOOL_KERNELS = [
+    ("gather_rows", "gather_fold", "gather_rows.cu",
+     "tools/gather_fold.py:65"),
+    ("blend_floor", "blend_floor", "blend_floor.cu",
+     "tools/blend_floor.py:100"),
+    ("mm_orient", "mm_orient", "mm_orient.cu", "tools/mm_orient.py:62"),
+    ("floor_bench", "floor_bench", "step_floor.cu",
+     "tools/floor_bench.py:84"),
+    ("floor_bench2", "floor_bench2", "step_floor.cu",
+     "tools/floor_bench2.py:71"),
+]
+
+
+def written_rel_err(torch, got, ref, written):
+    """max |got - ref| over the written blocks, relative to max |ref|
+    there (ref in float64); 0 when nothing is written."""
+    if not bool(written.any()):
+        return 0.0, 0.0
+    d = float((got[written].double() - ref[written]).abs().max())
+    scale = float(ref[written].abs().max())
+    return d, d / scale if scale else d
+
+
+def check_gather(torch, mod, run):
+    """The gather kernel against its plain version, bit for bit, on the
+    tool's random rows and on the 16x16 frame's pair rows (with padding)."""
+    from gaussianrpg_tpu_torch.tools._timing import device_ms
+
+    exact, err = {}, 0.0
+    for key, (fields, src) in (("random", mod.tool_inputs("cuda", False)),
+                               ("frame_16x16",
+                                mod.frame_inputs("cuda", False))):
+        got = mod.gather_rows(fields, src)
+        ref = mod.gather_rows_plain(fields, src)
+        exact[key] = bool(torch.equal(got, ref))
+        err = max(err, float((got - ref).abs().max()))
+        if key == "random":
+            plain_ms = device_ms(lambda: mod.gather_rows_plain(fields, src),
+                                 reps=5)
+    r = run["random"]
+    nf = r["nf"]
+    b_ms, b_by = bound(r["distinct_rows"] * nf * 4 + r["rows"] * 4
+                       + r["rows"] * nf * 4, 0)
+    per_pair_ms, _ = bound(2 * r["rows"] * nf * 4 + r["rows"] * 4, 0)
+    ok = all(exact.values())
+    emit(dict(phase="tools", kernel="gather_rows", exact=exact,
+              tolerance="bit for bit", random=r, frame_16x16=run[
+                  "frame_16x16"], plain_ms=plain_ms, bound_ms=b_ms,
+              bound_by=b_by, bound_ms_reading_a_row_per_pair=per_pair_ms,
+              ok=ok))
+    check(ok, "tools", "gather_rows disagrees with its plain version")
+    return dict(max_abs_err=err, ms=r["ms"], plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=r["library_ms"])
+
+
+def check_blend_floor(torch, mod, run):
+    """The three stripped forms of kernel B against their plain versions
+    (float64 sums) at the floor and the real input, both tilings: the
+    planes (the last chunk's sum, as the TPU body writes) and the per-tile
+    sum over every chunk the kernel staged, which a kernel that skipped a
+    chunk of a range would miss."""
+    from gaussianrpg_tpu_torch.tools._timing import device_ms
+
+    errs, abs_err = {}, 0.0
+    for tiling, (inp, inputs) in mod.tool_inputs("cuda", False).items():
+        lists = inp.lists
+        n_tiles = lists.n_tiles_x * lists.n_tiles_y
+        n_pix = lists.tile_x * lists.tile_y
+        for variant in mod.VARIANTS:
+            for tag in ("floor", "real"):
+                cm, g = inputs[tag]
+                got, staged = mod.stripped_forward(
+                    variant, g, cm, n_tiles=n_tiles, n_pix=n_pix)
+                ref, staged_ref, written = mod.stripped_forward_plain(
+                    variant, g.double(), cm, n_tiles=n_tiles, n_pix=n_pix)
+                d, rel = written_rel_err(torch, got, ref, written)
+                ds, rel_s = written_rel_err(torch, staged, staged_ref,
+                                            written)
+                errs[f"{tiling} {variant} {tag}"] = rel
+                errs[f"{tiling} {variant} {tag} staged"] = rel_s
+                abs_err = max(abs_err, d, ds)
+        if tiling == "64x32":
+            cm, g = inputs["real"]
+            plain_ms = device_ms(lambda: mod.stripped_forward_plain(
+                "stage", g, cm, n_tiles=n_tiles, n_pix=n_pix), reps=5)
+        del inp, inputs
+    r = run["64x32"]
+    n_pix = 64 * 32
+    staged = r["chunks_in_ranges"] * 128 * r["nf"]
+    b_ms, b_by = bound(4 * staged + r["tiles_written"] * (5 * n_pix + 1) * 4
+                       + 8 * r["tiles"] + 4 * r["chunks"], staged)
+    ok = max(errs.values()) <= TOOLS_RTOL
+    emit(dict(phase="tools", kernel="blend_floor", rel_err=errs,
+              tolerance=f"{TOOLS_RTOL} of the written blocks' max", runs=run,
+              timed="stage, 64x32, real input", plain_ms=plain_ms,
+              bound_ms=b_ms, bound_by=b_by, ok=ok))
+    check(ok, "tools", "blend_floor disagrees with its plain version")
+    return dict(max_abs_err=abs_err, ms=r["stage real"], plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def check_floor_bench(torch, mod, run):
+    """Every floor_bench variant at full size with a seeded mixed valid
+    pattern and uniform gdata, against the float64 plain version."""
+    import numpy as np
+
+    from gaussianrpg_tpu_torch.tools._timing import device_ms
+
+    size = mod.FULL
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    gdata = torch.rand((size["capacity"], mod.NF), generator=gen,
+                       device="cuda")
+    errs, abs_err = {}, 0.0
+    kw = dict(n_tiles=size["n_tiles"], n_pix=size["n_pix"])
+    for name in mod.VARIANTS:
+        n_steps, block, _, dyn = mod.variant_shape(name, False)
+        valid = np.random.default_rng(n_steps).random(n_steps) < 0.5
+        cm = mod.chunk_meta(n_steps, valid, size["n_tiles"], "cuda")
+        g = gdata[:n_steps * block]
+        got = mod.floor_bench(g, cm, block=block, dyn_out=dyn, **kw)
+        ref, written = mod.floor_bench_plain(g.double(), cm, block=block,
+                                             dyn_out=dyn, **kw)
+        d, errs[name] = written_rel_err(torch, got, ref, written)
+        abs_err = max(abs_err, d)
+    name = "A 9216x128 skip-all dynout"
+    n_steps, block, valid, dyn = mod.variant_shape(name, False)
+    cm = mod.chunk_meta(n_steps, valid, size["n_tiles"], "cuda")
+    zeros = torch.zeros((n_steps * block, mod.NF), device="cuda")
+    plain_ms = device_ms(lambda: mod.floor_bench_plain(
+        zeros, cm, block=block, dyn_out=dyn, **kw), reps=5)
+    # skip-all, dynamic out: the metadata read, every tile's block written
+    b_ms, b_by = bound(4 * n_steps + size["n_tiles"] * 5 * size["n_pix"]
+                       * 4, 0)
+    ok = max(errs.values()) <= TOOLS_RTOL
+    emit(dict(phase="tools", kernel="floor_bench", rel_err=errs,
+              tolerance=f"{TOOLS_RTOL} of the written blocks' max",
+              runs=run, timed=name, plain_ms=plain_ms, bound_ms=b_ms,
+              bound_by=b_by, ok=ok))
+    check(ok, "tools", "floor_bench disagrees with its plain version")
+    return dict(max_abs_err=abs_err, ms=run[name]["ms"], plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def check_floor_bench2(torch, mod, run):
+    """Every floor_bench2 variant at full size with a seeded mixed valid
+    pattern, uniform gdata and distinct uniform input arrays (G reads two
+    step-major [9216, 5, 2048] arrays), against the float64 plain
+    version."""
+    import numpy as np
+
+    from gaussianrpg_tpu_torch.tools._timing import device_ms
+
+    size = mod.FULL
+    n_steps, n_tiles, n_pix = size["n_steps"], size["n_tiles"], size["n_pix"]
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    valid = np.random.default_rng(9).random(n_steps) < 0.5
+    cm = mod.chunk_meta(n_steps, valid, n_tiles, "cuda")
+    gdata = torch.rand((n_steps * mod.BLOCK, mod.NF), generator=gen,
+                       device="cuda")
+    errs, abs_err = {}, 0.0
+    for name, (n_in, dyn_in, dyn_out) in mod.VARIANTS.items():
+        n_blocks = n_tiles if dyn_in else n_steps
+        ins = [torch.rand((n_blocks, 5, n_pix), generator=gen,
+                          device="cuda") for _ in range(n_in)]
+        kw = dict(dyn_in=dyn_in, dyn_out=dyn_out, n_tiles=n_tiles,
+                  n_pix=n_pix)
+        got = mod.floor_bench2(gdata, cm, ins, **kw)
+        ref, written = mod.floor_bench2_plain(
+            gdata.double(), cm, [x.double() for x in ins], **kw)
+        d, errs[name] = written_rel_err(torch, got, ref, written)
+        abs_err = max(abs_err, d)
+        del ins, got, ref
+        torch.cuda.empty_cache()
+    _, cm0, ones, _ = mod.tool_inputs("cuda", False)
+    name = "A dyn-out"
+    plain_ms = device_ms(lambda: mod.floor_bench2_plain(
+        ones, cm0, [], dyn_in=False, dyn_out=True, n_tiles=n_tiles,
+        n_pix=n_pix), reps=5)
+    # skip-all: only the metadata is needed; nothing is written
+    b_ms, b_by = bound(4 * n_steps, 0)
+    ok = max(errs.values()) <= TOOLS_RTOL
+    emit(dict(phase="tools", kernel="floor_bench2", rel_err=errs,
+              tolerance=f"{TOOLS_RTOL} of the written blocks' max",
+              runs=run, timed=name, plain_ms=plain_ms, bound_ms=b_ms,
+              bound_by=b_by, ok=ok))
+    check(ok, "tools", "floor_bench2 disagrees with its plain version")
+    return dict(max_abs_err=abs_err, ms=run[name]["ms"], plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def check_mm_orient(torch, mod, run):
+    """Each form at full size on seeded continuous operands (st, ba, x[s]
+    uniform in [-1, 1)) against the float64 plain version, within
+    TOOLS_RTOL of its max. A kernel that read its operands at a lower
+    precision would miss that limit: the control (the plain form with
+    each step's operands rounded to TF32, as a tensor-core TF32 kernel
+    reads them) must fail it through the same comparison."""
+    from gaussianrpg_tpu_torch.tools._timing import device_ms
+
+    size = mod.FULL
+    g4, p, n_steps = size["g4"], size["p"], size["n_steps"]
+    gen = torch.Generator(device="cuda").manual_seed(6)
+
+    def uniform(shape):
+        return torch.rand(shape, generator=gen, device="cuda") * 2 - 1
+
+    st, x = uniform((g4, p)), uniform((n_steps,))
+    errs, abs_err = {}, 0.0
+    for form in mod.FORMS:
+        ba = uniform(mod.ba_shape(form, p))
+        ref = mod.mm_orient_plain(form, st.double(), ba.double(), x.double())
+        got = mod.mm_orient(form, st, ba, x)
+        d = float((got.double() - ref).abs().max())
+        errs[form] = d / float(ref.abs().max())
+        abs_err = max(abs_err, d)
+        if form == "A":
+            ctl = mod.mm_orient_tf32(form, st, ba, x)
+            control = float((ctl - ref).abs().max() / ref.abs().max())
+    st, ba, x = mod.tool_inputs("A", "cuda", False)
+    plain_ms = device_ms(lambda: mod.mm_orient_plain("A", st, ba, x), reps=1,
+                         warmup=0)
+    b_ms, b_by = bound(4 * (g4 * p + p * mod.C + n_steps + g4 * mod.C),
+                       n_steps * (2 * g4 * p * mod.C + g4 * p))
+    control_fails = control > TOOLS_RTOL
+    ok = max(errs.values()) <= TOOLS_RTOL and control_fails
+    emit(dict(phase="tools", kernel="mm_orient", rel_err=errs,
+              tolerance=f"{TOOLS_RTOL} of the float64 result's max",
+              rel_err_control_tf32_operands=control,
+              control_fails=control_fails, runs=run, timed="A",
+              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, ok=ok))
+    check(ok, "tools", "mm_orient disagrees with its plain version, or "
+          "the TF32 control passes")
+    return dict(max_abs_err=abs_err, ms=run["A"]["ms"], plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=run["A"][
+                    "library_ms"])
+
+
+def phase_tools(torch):
+    """The port's tools (`gaussianrpg_tpu_torch/tools/`) at full size: each
+    tool's `run()` with the launch counts set to 0 before and read after
+    (the tools' path), then each new kernel against its plain version."""
+    import importlib
+
+    mods = {name: importlib.import_module(
+        f"gaussianrpg_tpu_torch.tools.{module}")
+        for name, module, _, _ in TOOL_KERNELS}
+    runs = {}
+    t0 = time.time()
+    for mod in mods.values():
+        mod.launches = 0
+    for name, mod in mods.items():
+        runs[name] = mod.run("cuda")
+    launches = {name: mod.launches for name, mod in mods.items()}
+    ok = all(v > 0 for v in launches.values())
+    emit(dict(phase="tools", step="run", seconds=time.time() - t0,
+              launches=launches, ok=ok))
+    check(ok, "tools", f"a tool's kernel was not launched: {launches}")
+    checks = {"gather_rows": check_gather, "blend_floor": check_blend_floor,
+              "floor_bench": check_floor_bench,
+              "floor_bench2": check_floor_bench2,
+              "mm_orient": check_mm_orient}
+    out = {}
+    for name, module, source, replaces in TOOL_KERNELS:
+        rec = checks[name](torch, mods[name], runs[name])
+        out[name] = {"name": name, "route": "cuda",
+                     "source": f"gaussianrpg_tpu_torch/csrc/{source}",
+                     "replaces": replaces, "launches": launches[name], **rec}
+        torch.cuda.empty_cache()
+    emit(dict(phase="tools", seconds=time.time() - t0, ok=True))
     return out
 
 
@@ -855,13 +1138,16 @@ def main():
     print(smi, flush=True)
     try:
         t0 = time.time()
-        cuda_build.build_all(["cummax", "blend_fwd", "blend_bwd"])
+        cuda_build.build_all(["cummax", "blend_fwd", "blend_bwd",
+                              "gather_rows", "blend_floor", "step_floor",
+                              "mm_orient"])
         ptxas = {name: [ln.strip() for ln in log.splitlines()
                         if "registers" in ln or "spill" in ln]
                  for name, log in cuda_build.build_logs.items()}
         emit(dict(phase="build", seconds=time.time() - t0, ptxas=ptxas,
                   ok=True))
         kout = phase_kernels(torch)
+        tools = phase_tools(torch)
         phase_small(torch)
         phase_small_train(torch)
         phase_frame(torch, kout)
@@ -899,7 +1185,7 @@ def main():
          "launches": launches["blend_bwd"], "max_abs_err": errs_d,
          "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
          "bound_by": d["bound_by"], "library_ms": None},
-    ]})
+    ] + [tools[name] for name, _, _, _ in TOOL_KERNELS]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

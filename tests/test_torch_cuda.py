@@ -1,7 +1,8 @@
 """Card-only tests of the port's CUDA kernels against their plain PyTorch
 versions (kernel A: fused cummax, kernel B: blend forward, kernel C: blend
-backward), plus one frame and its gradients through `rasterize` on the
-card against the CPU path.
+backward, and the kernels of the tools in `gaussianrpg_tpu_torch/tools`),
+plus one frame and its gradients through `rasterize` on the card against
+the CPU path.
 
 They skip without a CUDA card. This file imports neither JAX nor the JAX
 package, so on a machine with the card and no JAX it runs alone:
@@ -292,3 +293,153 @@ def test_blocked_prefix_sums_on_card(cuda):
     ref = torch.cumsum(x.double(), dim=0).t()
     assert got.shape == (16, x.shape[0])
     assert torch.allclose(got.double(), ref, rtol=1e-5, atol=1e-2)
+
+
+# --- the tools' kernels (gaussianrpg_tpu_torch/tools) ----------------------
+
+def _rel_written(got, ref, written):
+    """max |got - ref| over the written blocks, over max |ref| there."""
+    g, r = got[written].double(), ref[written].double()
+    return float((g - r).abs().max() / (r.abs().max() + 1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rows,nf,rows", [(1000, 16, 1024), (777, 24, 1000),
+                                            (5, 4, 129), (600, 92, 131)])
+def test_gather_rows_kernel_matches_plain(cuda, n_rows, nf, rows):
+    """Bit for bit, on ragged row counts and widths 4-92, with row ids
+    that hit row 0, the last row, and padding / out-of-range ids."""
+    from gaussianrpg_tpu_torch.tools import gather_fold as gf
+
+    gen = torch.Generator(device=cuda).manual_seed(rows)
+    fields = torch.randn((n_rows, nf), generator=gen, device=cuda)
+    src = torch.randint(0, n_rows, (rows,), dtype=torch.int32,
+                        generator=gen, device=cuda)
+    src[0], src[-1] = 0, n_rows - 1
+    src[1::7] = -1
+    src[2::11] = n_rows
+    n0 = gf.launches
+    got = gf.gather_rows(fields, src)
+    torch.cuda.synchronize()
+    assert gf.launches == n0 + 1
+    assert torch.equal(got, gf.gather_rows_plain(fields, src))
+    assert not got[1::7].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["empty", "stage", "stage_done"])
+@pytest.mark.parametrize("tx,ty,tight", [(16, 16, False), (16, 16, True),
+                                         (64, 32, True), (16, 8, False)])
+def test_stripped_blend_kernel_matches_plain(cuda, variant, tx, ty, tight):
+    """The stripped forms of kernel B against their float64 plain version
+    on the tiles with a chunk range (the scene's Gaussians all lie left of
+    the camera axis, so the right-hand tiles have no chunks); `tight` sets
+    the capacity to the padded pair count, so that a tile's last chunk is
+    the last chunk of the capacity. Planes and the per-tile sum over every
+    staged chunk both."""
+    from gaussianrpg_tpu_torch.tools import blend_floor as bf
+
+    W, H = 160, 96
+    cam, means, t = _scene(300, W, H, 9, cuda)
+    means[:, 0] = -means[:, 0].abs() - 1.0
+    fs = primitive_fields(means, t["opacities"], camera=cam,
+                          colors=t["colors"], scales=t["scales"],
+                          rotations=t["rotations"], tile_x=tx, tile_y=ty)
+    gdata, lists = pair_rows(fs, width=W, height=H, capacity=1 << 16)
+    if tight:
+        gdata, lists = pair_rows(fs, width=W, height=H,
+                                 capacity=int(lists.padded_total))
+        assert int(lists.chunk_meta[-1]) >> 25 & 1
+    assert not bool(lists.overflowed)
+    n_tiles, n_pix = lists.n_tiles_x * lists.n_tiles_y, tx * ty
+    for cm in (lists.chunk_meta, lists.chunk_meta & ~bf.VALID_BIT):
+        n0 = bf.launches
+        got, staged = bf.stripped_forward(variant, gdata, cm,
+                                          n_tiles=n_tiles, n_pix=n_pix)
+        torch.cuda.synchronize()
+        assert bf.launches == n0 + 1
+        ref, staged_ref, written = bf.stripped_forward_plain(
+            variant, gdata.double(), cm, n_tiles=n_tiles, n_pix=n_pix)
+        if written.any():
+            assert not written.all()
+            assert _rel_written(got, ref, written) <= 1e-5
+            if variant == "empty":
+                assert not staged[written].any()
+            else:
+                assert _rel_written(staged, staged_ref, written) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [128, 256, 512, 1024])
+@pytest.mark.parametrize("dyn_out", [True, False])
+def test_floor_bench_kernel_matches_plain(cuda, block, dyn_out):
+    """37 steps over 5 tiles with a mixed valid pattern, every block size,
+    dynamic and fixed output, against the float64 plain version."""
+    from gaussianrpg_tpu_torch.tools import floor_bench as fb
+
+    n_steps, n_tiles, n_pix = 37, 5, 100
+    valid = np.random.default_rng(block).random(n_steps) < 0.5
+    cm = fb.chunk_meta(n_steps, valid, n_tiles, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(block)
+    gdata = torch.rand((n_steps * block, 16), generator=gen, device=cuda)
+    kw = dict(block=block, dyn_out=dyn_out, n_tiles=n_tiles, n_pix=n_pix)
+    n0 = fb.launches
+    got = fb.floor_bench(gdata, cm, **kw)
+    torch.cuda.synchronize()
+    assert fb.launches == n0 + 1
+    ref, written = fb.floor_bench_plain(gdata.double(), cm, **kw)
+    assert int(written.sum()) == (n_tiles if dyn_out else 1)
+    assert _rel_written(got, ref, written) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["A dyn-out", "B cmaj-out",
+                                  "E cmaj-out +1 dyn-in",
+                                  "F cmaj-out +2 dyn-in",
+                                  "G cmaj-out +2 cmaj-in"])
+def test_floor_bench2_kernel_matches_plain(cuda, name):
+    """37 steps of 128 rows over 5 tiles with a mixed valid pattern and
+    distinct inputs, each variant, against the float64 plain version."""
+    from gaussianrpg_tpu_torch.tools import floor_bench as fb
+    from gaussianrpg_tpu_torch.tools import floor_bench2 as fb2
+
+    n_steps, n_tiles, n_pix = 37, 5, 100
+    n_in, dyn_in, dyn_out = fb2.VARIANTS[name]
+    valid = np.random.default_rng(n_in).random(n_steps) < 0.5
+    cm = fb.chunk_meta(n_steps, valid, n_tiles, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    gdata = torch.rand((n_steps * 128, 16), generator=gen, device=cuda)
+    ins = [torch.rand((n_tiles if dyn_in else n_steps, 5, n_pix),
+                      generator=gen, device=cuda) for _ in range(n_in)]
+    kw = dict(dyn_in=dyn_in, dyn_out=dyn_out, n_tiles=n_tiles, n_pix=n_pix)
+    n0 = fb2.launches
+    got = fb2.floor_bench2(gdata, cm, ins, **kw)
+    torch.cuda.synchronize()
+    assert fb2.launches == n0 + 1
+    ref, written = fb2.floor_bench2_plain(gdata.double(), cm,
+                                          [x.double() for x in ins], **kw)
+    assert written.any()
+    assert _rel_written(got, ref, written) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["A", "B", "B+T"])
+@pytest.mark.parametrize("g4,p,n_steps", [(64, 128, 1), (192, 640, 7),
+                                          (512, 2048, 33)])
+def test_mm_orient_kernel_matches_plain(cuda, form, g4, p, n_steps):
+    """Each orientation at small and odd shapes (one block, several
+    blocks and step splits), seeded uniform operands, against the float64
+    plain version (1e-5 of its max)."""
+    from gaussianrpg_tpu_torch.tools import mm_orient as mo
+
+    gen = torch.Generator(device=cuda).manual_seed(g4 + n_steps)
+    st = torch.rand((g4, p), generator=gen, device=cuda) * 2 - 1
+    ba = torch.rand(mo.ba_shape(form, p), generator=gen, device=cuda) * 2 - 1
+    x = torch.rand((n_steps,), generator=gen, device=cuda)
+    n0 = mo.launches
+    got = mo.mm_orient(form, st, ba, x)
+    torch.cuda.synchronize()
+    assert mo.launches == n0 + 1
+    ref = mo.mm_orient_plain(form, st.double(), ba.double(), x.double())
+    assert got.shape == ref.shape == mo.out_shape(form, g4)
+    assert _rel_err(got.double(), ref) <= 1e-5
