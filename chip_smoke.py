@@ -13,10 +13,11 @@ Phases, one JSON line each (any failure ends the run with exit code 1):
           on the frozen bench scene's pair lists (600k Gaussians,
           1066x1600) at 64x32 and 16x16 tiles with S=0 and S=3; the fused
           cummax (kernel A) at the 16x16 capacity with k=1 and k=2. Prints
-          the errors, tolerance, kernel / plain / library times and the
-          bound. Every time in the script is a device time: CUDA events
-          around calls queued behind a spin kernel
-          (`tools/_timing.device_ms`);
+          the errors, tolerance, kernel / plain / library times, the
+          bound, and kernels B's and C's registers, shared memory and
+          resident blocks per SM (`blend.kernel_info`). Every time in the
+          script is a device time: CUDA events around calls queued behind
+          a spin kernel (`tools/_timing.device_ms`);
   tools   the port's microbenchmarks (`gaussianrpg_tpu_torch/tools/`, the
           counterparts of the repo's `tools/` Pallas kernels) at full size:
           each tool's `run()` with its kernel's launches counted from zero,
@@ -28,7 +29,9 @@ Phases, one JSON line each (any failure ends the run with exit code 1):
           mm_orient within 1e-5 of the float64 result's max on the
           written blocks; mm_orient on continuous random operands, where
           a control that rounds its operands to TF32 must fail that
-          limit), with kernel / plain / library times and bounds;
+          limit), with kernel / plain / library times and bounds; then
+          `tools/bwd_ablate` (kernel C beside its variant without the
+          per-pair reductions, whose rows must be zero);
   small   one small frame on the card against the same frame through the
           port's CPU path (the plain versions the CPU tests hold against
           the JAX package);
@@ -46,7 +49,11 @@ Phases, one JSON line each (any failure ends the run with exit code 1):
           segment sum's error against float64, peak memory;
   loop    the closed loop (`apps.simulate` synthetic setup at 600k
           background Gaussians, 1066x1600, 16x16 tiles) for 3.5 s of
-          simulation: verdict, frames, median frame ms, AEB braking;
+          simulation: verdict, frames, median frame ms, AEB braking; then
+          kernels B and C against their plain versions, as in phase
+          kernel, on the pair lists of the loop's first frame (the main
+          path's own inputs: sigma 10-400 px at opacity 0.1, which the
+          pair culling hardly thins, unlike the frozen scene's);
   train   the trainer (`apps.train.run_training`) on the synthetic scene
           at 600k background Gaussians + 2 actors, 1066x1600, 16x16: 60
           steps with one densify-and-prune event; the L1 of the trainer's
@@ -57,9 +64,11 @@ Phases, one JSON line each (any failure ends the run with exit code 1):
           in a subprocess.
 The line before the last is the kernel table ({"kernels": [...]}: kernels
 A, B and C with their launches summed over the closed loop, train_frame
-and train runs, the five tool kernels with their launches in the tools'
-runs, each counted from zero); the card's name and power limit are printed
-first and again before it; the last line is the device verdict.
+and train runs, B's and C's times from the loop frame, their errors the
+largest over every shape checked; the five tool kernels with their
+launches in the tools' runs, each counted from zero); the card's name
+and power limit are printed first and again before it; the last line is
+the device verdict.
 Needs CUDA: without it (or without the package beside it) the script
 exits non-zero and prints no verdict.
 """
@@ -150,8 +159,50 @@ def rel_err(torch, got, ref):
     return float((got - ref).abs().max()) / scale if scale else 0.0
 
 
+def check_blend_fwd(torch, blend, gdata, lists, bg, kw, scene):
+    """Kernel B against the plain forward on one frame's pair rows and
+    lists; returns the record, both planes and the live pair-pixels."""
+    from gaussianrpg_tpu_torch.tools._timing import device_ms
+
+    cm = lists.chunk_meta
+    tx, ty, s_ch = kw["tx"], kw["ty"], kw["s_ch"]
+
+    def run_kernel():
+        return blend.blend_forward(gdata, cm, bg, **kw)
+
+    kern = run_kernel()
+    torch.cuda.synchronize()
+    plain, live = blend.blend_forward_plain(gdata, cm, bg, count_live=True,
+                                            **kw)
+    err, outliers, pixels = compare_planes(torch, kern, plain,
+                                           lists.tile_nonempty, s_ch)
+    ms = device_ms(run_kernel, reps=10)
+    plain_ms = device_ms(lambda: blend.blend_forward_plain(
+        gdata, cm, bg, **kw), reps=1, warmup=0)
+    raw = int(lists.raw_total)
+    written = int(lists.tile_nonempty.sum())
+    nbytes = (raw * gdata.shape[1] * 4 + cm.numel() * 4
+              + written * (5 + s_ch) * tx * ty * 4)
+    b_ms, b_by = bound(nbytes, live * (21 + 2 * s_ch))
+    ok = outliers <= max(1, int(MAX_FLIP_SHARE * pixels))
+    rec = dict(phase="kernel", kernel="blend_fwd", scene=scene,
+               tile=f"{tx}x{ty}", s_ch=s_ch, pairs=raw,
+               capacity=gdata.shape[0], live_pair_pixels=live,
+               max_abs_err=err, outlier_pixels=outliers, pixels=pixels,
+               tolerance=f"rtol {RTOL}, atol {ATOL} (depth {ATOL_DEPTH}); "
+                         f"outlier pixels <= {MAX_FLIP_SHARE} of pixels",
+               ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=None,
+               occupancy=blend.kernel_info("blend_fwd", tx=tx, ty=ty,
+                                           s_ch=s_ch, nf=gdata.shape[1]),
+               ok=ok)
+    emit(rec)
+    check(ok, "kernel", f"blend_fwd {scene} {tx}x{ty} S={s_ch} disagrees")
+    return rec, kern, plain, live
+
+
 def check_blend_bwd(torch, blend, gdata, lists, bg, kern, plain, live, kw,
-                    W, H, raw, written, seed):
+                    W, H, seed, scene):
     """Kernel C on kernel B's planes against the plain backward on the
     plain forward's planes (each backward replays its own forward), with
     one seeded random cotangent of the planes."""
@@ -180,20 +231,26 @@ def check_blend_bwd(torch, blend, gdata, lists, bg, kern, plain, live, kw,
     plain_ms = device_ms(run_plain, reps=1, warmup=0)
     nf = gdata.shape[1]
     n_pix = kw["tx"] * kw["ty"]
+    raw = int(lists.raw_total)
+    written = int(lists.tile_nonempty.sum())
     nbytes = (raw * nf * 4 + cm.numel() * 4
               + 2 * written * (5 + s_ch) * n_pix * 4
               + gdata.shape[0] * nf * 4)
     b_ms, b_by = bound(nbytes, live * (21 + 45 + 4 * s_ch))
     ok = rest_zero and max(errs.values()) <= GRAD_RTOL
-    rec = dict(phase="kernel", kernel="blend_bwd",
+    rec = dict(phase="kernel", kernel="blend_bwd", scene=scene,
                tile=f"{kw['tx']}x{kw['ty']}", s_ch=s_ch, pairs=raw,
                capacity=gdata.shape[0], live_pair_pixels=live,
                rel_err=errs, max_abs_err=float((got - ref).abs().max()),
                tolerance=f"{GRAD_RTOL} of each column group's max",
                other_columns_zero=rest_zero, ms=ms, plain_ms=plain_ms,
-               bound_ms=b_ms, bound_by=b_by, library_ms=None, ok=ok)
+               bound_ms=b_ms, bound_by=b_by, library_ms=None,
+               occupancy=blend.kernel_info("blend_bwd", tx=kw["tx"],
+                                           ty=kw["ty"], s_ch=s_ch, nf=nf),
+               ok=ok)
     emit(rec)
-    check(ok, "kernel", f"blend_bwd {rec['tile']} S={s_ch} disagrees")
+    check(ok, "kernel", f"blend_bwd {scene} {rec['tile']} S={s_ch} "
+          "disagrees")
     return rec
 
 
@@ -232,41 +289,12 @@ def phase_kernels(torch):
                   f"pair overflow at {tx}x{ty}")
             kw = dict(ntx=lists.n_tiles_x, nty=lists.n_tiles_y, tx=tx,
                       ty=ty, s_ch=s_ch)
-            cm = lists.chunk_meta
-
-            def run_kernel():
-                return blend.blend_forward(gdata, cm, bg, **kw)
-
-            kern = run_kernel()
-            torch.cuda.synchronize()
-            plain, live = blend.blend_forward_plain(gdata, cm, bg,
-                                                    count_live=True, **kw)
-            err, outliers, pixels = compare_planes(
-                torch, kern, plain, lists.tile_nonempty, s_ch)
-            ms = device_ms(run_kernel, reps=10)
-            plain_ms = device_ms(lambda: blend.blend_forward_plain(
-                gdata, cm, bg, **kw), reps=1, warmup=0)
-            raw = int(lists.raw_total)
-            written = int(lists.tile_nonempty.sum())
-            nbytes = (raw * gdata.shape[1] * 4 + cm.numel() * 4
-                      + written * (5 + s_ch) * tx * ty * 4)
-            b_ms, b_by = bound(nbytes, live * (21 + 2 * s_ch))
-            ok = outliers <= max(1, int(MAX_FLIP_SHARE * pixels))
-            rec = dict(phase="kernel", kernel="blend_fwd", tile=f"{tx}x{ty}",
-                       s_ch=s_ch, pairs=raw, capacity=sizes.capacity,
-                       live_pair_pixels=live, max_abs_err=err,
-                       outlier_pixels=outliers, pixels=pixels,
-                       tolerance=f"rtol {RTOL}, atol {ATOL} (depth "
-                                 f"{ATOL_DEPTH}); outlier pixels <= "
-                                 f"{MAX_FLIP_SHARE} of pixels",
-                       ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                       library_ms=None, ok=ok)
-            emit(rec)
-            check(ok, "kernel", f"blend_fwd {tx}x{ty} S={s_ch} disagrees")
+            rec, kern, plain, live = check_blend_fwd(
+                torch, blend, gdata, lists, bg, kw, "frozen")
             out["blend_fwd"][(tx, ty, s_ch)] = rec
             out["blend_bwd"][(tx, ty, s_ch)] = check_blend_bwd(
                 torch, blend, gdata, lists, bg, kern, plain, live, kw,
-                W, H, raw, written, seed=10 * tx + s_ch)
+                W, H, seed=10 * tx + s_ch, scene="frozen")
             del gdata, lists, kern, plain, fs
             torch.cuda.empty_cache()
 
@@ -581,8 +609,26 @@ def phase_tools(torch):
                      "source": f"gaussianrpg_tpu_torch/csrc/{source}",
                      "replaces": replaces, "launches": launches[name], **rec}
         torch.cuda.empty_cache()
+    phase_bwd_ablate(torch)
     emit(dict(phase="tools", seconds=time.time() - t0, ok=True))
     return out
+
+
+def phase_bwd_ablate(torch):
+    """`tools/bwd_ablate`: kernel C against its variant without the
+    per-pair reductions (zero rows, checked) on the frozen scene at both
+    tilings, with kernel B beside them; full minus nograd is what the
+    reductions cost."""
+    from gaussianrpg_tpu_torch.tools import bwd_ablate
+
+    bwd_ablate.launches = 0
+    res = bwd_ablate.run("cuda")
+    zero = all(res[t]["nograd_rows_zero"] for t in ("64x32", "16x16"))
+    ok = bwd_ablate.launches > 0 and zero
+    emit(dict(phase="tools", tool="bwd_ablate", runs=res,
+              launches=bwd_ablate.launches, ok=ok))
+    check(ok, "tools", "bwd_ablate's no-reduction form did not run or "
+          "wrote rows")
 
 
 SMALL_W, SMALL_H = 128, 96
@@ -979,9 +1025,33 @@ def phase_train_frame(torch, kout):
     return total
 
 
+def recorded_pair_lists(render, cam):
+    """The pair rows and lists of one render, recorded from the tile
+    stage's `pair_rows` by a wrapper that calls through."""
+    from gaussianrpg_tpu_torch.ops import rasterize
+
+    got = []
+    orig = rasterize.pair_rows
+
+    def recording(*args, **kw):
+        got.append(orig(*args, **kw))
+        return got[-1]
+
+    rasterize.pair_rows = recording
+    try:
+        render(cam)
+    finally:
+        rasterize.pair_rows = orig
+    return got[0]
+
+
 def phase_loop(torch):
-    """The closed loop at full size."""
+    """The closed loop at full size; then kernels B and C against their
+    plain versions on the pair lists of the loop's first frame (the main
+    path's own inputs: its scene culls little, unlike the frozen one)."""
     import numpy as np
+
+    from gaussianrpg_tpu_torch.ops import blend
 
     from gaussianrpg_tpu_torch.apps.simulate import _synthetic_setup
     from gaussianrpg_tpu_torch.sim.loop import run_closed_loop
@@ -1016,7 +1086,15 @@ def phase_loop(torch):
               setup_s=setup_s, bad_frames=len(bad), launches=launches,
               ok=ok))
     check(ok, "loop", "closed loop failed")
-    return launches
+    gdata, lists = recorded_pair_lists(render_fn, cam0)
+    kw = dict(ntx=lists.n_tiles_x, nty=lists.n_tiles_y, tx=lists.tile_x,
+              ty=lists.tile_y, s_ch=0)
+    bg = torch.tensor([0.1, 0.2, 0.3], device="cuda")
+    fwd, kern, plain, live = check_blend_fwd(torch, blend, gdata, lists, bg,
+                                             kw, "loop frame")
+    bwd = check_blend_bwd(torch, blend, gdata, lists, bg, kern, plain, live,
+                          kw, 1600, 1066, seed=7, scene="loop frame")
+    return launches, fwd, bwd
 
 
 TRAIN_STEPS = 60
@@ -1154,18 +1232,21 @@ def main():
         runs = [phase_train_frame(torch, kout)]
         del kout["scene"]
         torch.cuda.empty_cache()
-        runs.append(phase_loop(torch))
+        loop_launches, b, d = phase_loop(torch)
+        runs.append(loop_launches)
         runs.append(phase_train(torch))
     except PhaseFailed as e:
         print(f"chip_smoke: {e}", file=sys.stderr)
         return 1
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
-    b = kout["blend_fwd"][(16, 16, 0)]
+    # B and C: times on the loop frame (their main path's inputs), errors
+    # over every shape checked
     c = kout["cummax"][1]
-    d = kout["blend_bwd"][(16, 16, 0)]
-    errs_b = max(r["max_abs_err"] for r in kout["blend_fwd"].values())
+    errs_b = max(r["max_abs_err"]
+                 for r in [b, *kout["blend_fwd"].values()])
     errs_c = max(r["max_abs_err"] for r in kout["cummax"].values())
-    errs_d = max(r["max_abs_err"] for r in kout["blend_bwd"].values())
+    errs_d = max(r["max_abs_err"]
+                 for r in [d, *kout["blend_bwd"].values()])
     emit({"kernels": [
         {"name": "blend_fwd", "route": "cuda",
          "source": "gaussianrpg_tpu_torch/csrc/blend_fwd.cu",

@@ -14,13 +14,15 @@
 //               staged[tile] = 0): the launch, the range read and kernel
 //               B's output write;
 //   stage       stages each chunk of the tile in shared memory as kernel B
-//               does (blend_fwd.cu:86-89), sums it (block reduction) and
+//               first did (a synchronous copy by the block's threads behind
+//               a barrier; kernel B now overlaps a bulk copy of the next
+//               chunk with the blend), sums it (block reduction) and
 //               writes the last chunk's sum to every element of the block,
 //               which is k_meta's result (its acc is never accumulated),
 //               and the sum over all the chunks it staged to staged[tile],
 //               so that a check sees every chunk of the range staged;
 //   stage_done  the same, with kernel B's `__syncthreads_count` live test
-//               (blend_fwd.cu:85) as the barrier before each chunk. No
+//               as the barrier before each chunk. No
 //               pixel is ever done here, as none is in k_ndone.
 // Bound: bytes. Each chunk of a written tile is read once (128*NF floats),
 // each written tile's block written once; the sums are one add a float.

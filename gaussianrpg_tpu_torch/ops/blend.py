@@ -27,6 +27,7 @@ in the F_RADIUS column, and semantics; other columns are zero.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -37,7 +38,6 @@ from .binning import G_CHUNK
 F_MX, F_MY, F_CA, F_CB, F_CC, F_OP, F_R, F_G, F_B, F_DEPTH, F_RADIUS = range(11)
 NF_BASE = 11
 F_SEM = NF_BASE
-SMEM_LIMIT = 232448          # bytes of shared memory a block may use
 PLAIN_BATCH_ELEMS = 1 << 24  # (tile, pair, pixel) elements per plain step
 
 launches = 0                 # kernel B launches through `blend_forward`
@@ -63,8 +63,7 @@ def tile_chunk_ranges(chunk_meta: torch.Tensor, n_tiles: int):
     return start[:n_tiles].contiguous(), end[:n_tiles].contiguous()
 
 
-def _check(gdata, chunk_meta, bg, n_tiles, tx, ty, s_ch, smem_floats,
-           name):
+def _check(gdata, chunk_meta, bg, n_tiles, tx, ty, s_ch, name):
     if gdata.dim() != 2 or gdata.dtype != torch.float32:
         raise TypeError(f"{name}: gdata must be a 2-D float32 tensor")
     cap, nf = gdata.shape
@@ -89,9 +88,30 @@ def _check(gdata, chunk_meta, bg, n_tiles, tx, ty, s_ch, smem_floats,
         raise ValueError(f"{name}: tile {tx}x{ty} not supported "
                          "(tx*ty must be 128..2048 and a power-of-two "
                          "multiple of 256 above 256)")
-    if 4 * smem_floats > SMEM_LIMIT:
-        raise ValueError(f"{name}: S={s_ch} needs more shared "
-                         "memory than a block has")
+
+
+def _check_kernel(gdata, tx, ty, name):
+    """What the card's kernels need beyond `_check`: the tile a whole
+    number of the warps' pixel regions (`Layout` in csrc/blend_tile.cuh),
+    16-byte aligned rows for the bulk copies. The shared memory is the C
+    entry's own check (`_check_launch`)."""
+    n_pix = tx * ty
+    ppt = n_pix // min(n_pix, 256)
+    bw = 2 if ppt >= 4 else 1
+    if tx % (8 * bw) or ty % (4 * (ppt // bw)):
+        raise ValueError(f"{name}: tile {tx}x{ty} is not a whole number "
+                         f"of {8 * bw}x{4 * (ppt // bw)} warp regions")
+    if gdata.data_ptr() % 16:
+        raise ValueError(f"{name}: gdata's rows must be 16-byte aligned")
+
+
+def _check_launch(err, s_ch, name):
+    """Raise on a C entry's refusal: after `_check_kernel`, -1 means the
+    block's shared memory (`smem_bytes` in the .cu) exceeds the card's."""
+    if err == -1:
+        raise ValueError(f"{name}: S={s_ch} needs more shared memory than "
+                         "a block has")
+    cuda_build.check(err, f"{name} launch")
 
 
 def blend_forward(gdata, chunk_meta, bg, *, ntx: int, nty: int, tx: int,
@@ -101,14 +121,14 @@ def blend_forward(gdata, chunk_meta, bg, *, ntx: int, nty: int, tx: int,
     with `PairLists.tile_nonempty`."""
     global launches
     n_tiles = ntx * nty
-    _check(gdata, chunk_meta, bg, n_tiles, tx, ty, s_ch,
-           G_CHUNK * gdata.shape[1] + s_ch * tx * ty, "blend_forward")
+    _check(gdata, chunk_meta, bg, n_tiles, tx, ty, s_ch, "blend_forward")
     if gdata.device.type == "cpu":
         return blend_forward_plain(gdata, chunk_meta, bg, ntx=ntx, nty=nty,
                                    tx=tx, ty=ty, s_ch=s_ch)
     if gdata.device.type != "cuda":
         raise ValueError(f"blend_forward: unsupported device {gdata.device}")
     gdata = gdata.contiguous()
+    _check_kernel(gdata, tx, ty, "blend_forward")
     bg = bg.reshape(3).contiguous()
     start, end = tile_chunk_ranges(chunk_meta, n_tiles)
     out = torch.empty((n_tiles, 5 + s_ch, tx * ty), dtype=torch.float32,
@@ -125,7 +145,7 @@ def blend_forward(gdata, chunk_meta, bg, *, ntx: int, nty: int, tx: int,
         err = fn(gdata.data_ptr(), gdata.shape[1], start.data_ptr(),
                  end.data_ptr(), bg.data_ptr(), out.data_ptr(), n_tiles, ntx,
                  tx, ty, s_ch, stream)
-    cuda_build.check(err, "blend_forward launch")
+    _check_launch(err, s_ch, "blend_forward")
     launches += 1
     return out
 
@@ -247,11 +267,60 @@ def blend_forward_plain(gdata, chunk_meta, bg, *, ntx: int, nty: int,
     return planes
 
 
-def _check_planes(name, planes, n_tiles, s_ch, n_pix, dev):
-    if (planes.dtype != torch.float32 or planes.device != dev
-            or tuple(planes.shape) != (n_tiles, 5 + s_ch, n_pix)):
-        raise ValueError(f"blend_backward: {name} must be float32 "
-                         f"[{n_tiles}, {5 + s_ch}, {n_pix}] on {dev}")
+# The per-pair cull rectangle of kernels B and C (`cull_rect` in
+# csrc/blend_tile.cuh, which derives it); float32 constants as there.
+_F32 = torch.float32
+CULL_OPACITY = float(torch.tensor(1.0 / 255.0, dtype=_F32)
+                     * torch.tensor(1.0 - 2.0 ** -20, dtype=_F32))
+CULL_MAX_SHEAR, CULL_MAX_CENTRE, CULL_MAX_VALUE = 1e5, 1e7, 1e20
+
+
+def cull_rect_plain(rows: torch.Tensor) -> torch.Tensor:
+    """(x_lo, x_hi, y_lo, y_hi) [..., 4] of pair rows [..., NF] (float32):
+    every pixel at which the blend's exact test lets the pair through lies
+    inside. The kernels' formula, written once more in PyTorch for the
+    tests (tests/test_torch_blend_cull.py); nothing on the main path calls
+    it. The whole plane where the conic is not positive definite, too
+    sheared or the inputs too large; an empty rectangle where the opacity
+    is below 1/255."""
+    rows = rows.to(_F32)
+    mx, my, ca, cb, cc, op = (rows[..., i] for i in range(6))
+    f = functools.partial(torch.tensor, dtype=_F32, device=rows.device)
+    inf = float("inf")
+    bounded = ((mx.abs() <= CULL_MAX_CENTRE) & (my.abs() <= CULL_MAX_CENTRE)
+               & (ca.abs() <= CULL_MAX_VALUE) & (cb.abs() <= CULL_MAX_VALUE)
+               & (cc.abs() <= CULL_MAX_VALUE) & (op.abs() <= CULL_MAX_VALUE))
+    det = ca * cc - cb * cb
+    r = (ca * cc) / det
+    ok = bounded & (ca > 0) & (cc > 0) & (det > 0) & (r <= CULL_MAX_SHEAR)
+    tau = (torch.clamp(torch.log(op * f(255.0)), min=0.0) * f(1.0 + 1e-6)
+           + f(4e-6))
+    t2 = f(2.0) * tau * (f(1.0) + f(2.0 ** -18) * r + f(1e-5)) / det
+    hx = torch.sqrt(t2 * cc)
+    hy = torch.sqrt(t2 * ca)
+    ex = f(1e-2) + f(1e-6) * (mx.abs() + hx)
+    ey = f(1e-2) + f(1e-6) * (my.abs() + hy)
+    rect = torch.stack([mx - hx - ex, mx + hx + ex, my - hy - ey,
+                        my + hy + ey], dim=-1)
+    everywhere = f([-inf, inf, -inf, inf]).expand_as(rect)
+    empty = f([inf, -inf, inf, -inf]).expand_as(rect)
+    rect = torch.where(ok[..., None], rect, everywhere)
+    return torch.where((bounded & (op < CULL_OPACITY))[..., None], empty,
+                       rect)
+
+
+def check_backward(gdata, chunk_meta, bg, out, dout, *, n_tiles: int,
+                   tx: int, ty: int, s_ch: int, name: str) -> None:
+    """Raise on inputs kernel C does not take (shapes, types, devices, the
+    tile shape)."""
+    n_pix = tx * ty
+    _check(gdata, chunk_meta, bg, n_tiles, tx, ty, s_ch, name)
+    for what, planes in (("out", out), ("dout", dout)):
+        if (planes.dtype != torch.float32 or planes.device != gdata.device
+                or tuple(planes.shape) != (n_tiles, 5 + s_ch, n_pix)):
+            raise ValueError(f"{name}: {what} must be float32 "
+                             f"[{n_tiles}, {5 + s_ch}, {n_pix}] on "
+                             f"{gdata.device}")
 
 
 def blend_backward(gdata, chunk_meta, bg, out, dout, *, ntx: int, nty: int,
@@ -263,28 +332,35 @@ def blend_backward(gdata, chunk_meta, bg, out, dout, *, ntx: int, nty: int,
     image). Slots of unwritten tiles and padding come back zero."""
     global bwd_launches
     n_tiles = ntx * nty
-    n_pix = tx * ty
-    nf = gdata.shape[1] if gdata.dim() == 2 else 0
-    threads = 256 if n_pix >= 256 else n_pix
-    _check(gdata, chunk_meta, bg, n_tiles, tx, ty, s_ch,
-           G_CHUNK * nf + (threads // 32) * G_CHUNK * (NF_BASE + s_ch)
-           + s_ch * n_pix, "blend_backward")
-    _check_planes("out", out, n_tiles, s_ch, n_pix, gdata.device)
-    _check_planes("dout", dout, n_tiles, s_ch, n_pix, gdata.device)
+    check_backward(gdata, chunk_meta, bg, out, dout, n_tiles=n_tiles, tx=tx,
+                   ty=ty, s_ch=s_ch, name="blend_backward")
     if gdata.device.type == "cpu":
         return blend_backward_plain(
             gdata, chunk_meta, bg, out, dout, ntx=ntx, nty=nty, tx=tx,
             ty=ty, s_ch=s_ch, stat_width=stat_width, stat_height=stat_height)
     if gdata.device.type != "cuda":
         raise ValueError(f"blend_backward: unsupported device {gdata.device}")
+    grad = _launch_backward("grpg_blend_bwd", gdata, chunk_meta, bg, out,
+                            dout, n_tiles=n_tiles, ntx=ntx, tx=tx, ty=ty,
+                            s_ch=s_ch, stat_width=stat_width,
+                            stat_height=stat_height)
+    bwd_launches += 1
+    return grad
+
+
+def _launch_backward(symbol, gdata, chunk_meta, bg, out, dout, *,
+                     n_tiles: int, ntx: int, tx: int, ty: int, s_ch: int,
+                     stat_width: int, stat_height: int) -> torch.Tensor:
+    """Launch the C entry `symbol` of csrc/blend_bwd.cu (kernel C, or its
+    variant for tools/bwd_ablate.py) on checked CUDA tensors."""
     gdata = gdata.contiguous()
+    _check_kernel(gdata, tx, ty, symbol)
     out = out.contiguous()
     dout = dout.contiguous()
     bg = bg.reshape(3).contiguous()
     start, end = tile_chunk_ranges(chunk_meta, n_tiles)
     grad = torch.empty_like(gdata)
-    lib = cuda_build.library("blend_bwd")
-    fn = lib.grpg_blend_bwd
+    fn = getattr(cuda_build.library("blend_bwd"), symbol)
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -294,14 +370,30 @@ def blend_backward(gdata, chunk_meta, bg, out, dout, *, ntx: int, nty: int,
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(gdata.device).cuda_stream
     with torch.cuda.device(gdata.device):
-        err = fn(gdata.data_ptr(), nf, chunk_meta.data_ptr(),
+        err = fn(gdata.data_ptr(), gdata.shape[1], chunk_meta.data_ptr(),
                  chunk_meta.shape[0], start.data_ptr(), end.data_ptr(),
                  bg.data_ptr(), out.data_ptr(), dout.data_ptr(),
                  grad.data_ptr(), n_tiles, ntx, tx, ty, s_ch,
                  0.5 * stat_width, 0.5 * stat_height, stream)
-    cuda_build.check(err, "blend_backward launch")
-    bwd_launches += 1
+    _check_launch(err, s_ch, symbol)
     return grad
+
+
+def kernel_info(kernel: str, *, tx: int, ty: int, s_ch: int,
+                nf: int) -> dict:
+    """Occupancy of kernel B ("blend_fwd") or C ("blend_bwd") as launched
+    for this tile shape on the current card: resident blocks per SM,
+    registers per thread, dynamic and static shared memory per block,
+    threads per block (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`,
+    `cudaFuncGetAttributes`)."""
+    info = (ctypes.c_int * 5)()
+    fn = getattr(cuda_build.library(kernel), f"grpg_{kernel}_info")
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    cuda_build.check(fn(tx, ty, s_ch, nf, ctypes.addressof(info)),
+                     f"{kernel} occupancy query")
+    return dict(zip(("blocks_per_sm", "registers", "dynamic_smem_bytes",
+                     "static_smem_bytes", "threads"), info))
 
 
 def blend_backward_plain(gdata, chunk_meta, bg, out, dout, *, ntx: int,

@@ -5,8 +5,9 @@ is compiled by `nvcc` into its own shared library for sm_90a, then loaded
 with `ctypes`. Nothing is built when a module is imported: a wrapper asks
 for its library at its first CUDA launch, and `build_all` compiles every
 source at once (one `nvcc` process per source, all started together).
-Libraries are named by a hash of their source, so an edited kernel is
-rebuilt and an unchanged one is reused. The build directory defaults to
+Libraries are named by a hash of their source and the shared headers
+(`csrc/*.cuh`), so an edited kernel is rebuilt and an unchanged one is
+reused. The build directory defaults to
 `build/kernels` at the checkout root (`GRPG_TORCH_BUILD_DIR` overrides it).
 """
 from __future__ import annotations
@@ -45,7 +46,8 @@ def nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return build_dir() / f"lib{name}_{digest}.so"
 

@@ -17,6 +17,12 @@ the floor input as in the tool and at the real input, where `stage` against
 kernel B says how much of B is reading its pairs. Also at 16x16 tiles (the
 closed loop's tiling, capacity from `suggest_binning_sizes`).
 
+The stripped forms keep the staging kernel B had when they were written:
+each chunk copied synchronously by the block's threads behind a barrier,
+which is what they were built to time. Kernel B now stages chunk c+1 by an
+asynchronous bulk copy while it blends chunk c, so `stage` minus `empty`
+is the cost of that old staging, not a share of the present kernel B.
+
     python -m gaussianrpg_tpu_torch.tools.blend_floor [--device cpu] [--small]
 """
 from __future__ import annotations

@@ -443,3 +443,66 @@ def test_mm_orient_kernel_matches_plain(cuda, form, g4, p, n_steps):
     ref = mo.mm_orient_plain(form, st.double(), ba.double(), x.double())
     assert got.shape == ref.shape == mo.out_shape(form, g4)
     assert _rel_err(got.double(), ref) <= 1e-5
+
+
+# --- kernels B and C on the cull test's adversarial pairs -------------------
+
+def _adversarial_scene(tx, ty, s_ch, device):
+    """gdata and chunk_meta of a 5x3-tile image holding every adversarial
+    pair of tests/test_torch_blend_cull.py (centres in [0, 64]^2, on tile
+    and block edges among them), each listed by the tile holding its
+    rounded centre, 128 pairs to a chunk; random colours, depths and
+    semantics."""
+    from .test_torch_blend_cull import ADVERSARIAL, adversarial_rows
+
+    ntx, nty = 5, 3
+    rows = torch.cat([adversarial_rows(c) for c in ADVERSARIAL])
+    rng = np.random.default_rng(6)
+    n = rows.shape[0]
+    rows[:, 6:10] = torch.as_tensor(rng.uniform(0, 1, (n, 4))
+                                    .astype(np.float32))
+    rows[:, 11:11 + s_ch] = torch.as_tensor(rng.uniform(0, 1, (n, s_ch))
+                                            .astype(np.float32))
+    tile_x = torch.clamp(torch.round(rows[:, 0]) // tx, 0, ntx - 1)
+    tile_y = torch.clamp(torch.round(rows[:, 1]) // ty, 0, nty - 1)
+    tile = (tile_y * ntx + tile_x).long()
+    chunks, meta = [], []
+    for t in range(ntx * nty):
+        mine = rows[tile == t]
+        if not mine.shape[0]:
+            continue
+        pad = -mine.shape[0] % 128
+        mine = torch.cat([mine, torch.zeros((pad, rows.shape[1]))])
+        k = mine.shape[0] // 128
+        for i in range(k):
+            meta.append(t | (i == 0) << 24 | (i == k - 1) << 25 | 1 << 26)
+        chunks.append(mine)
+    gdata = torch.cat(chunks).to(device)
+    cm = torch.tensor(meta, dtype=torch.int32, device=device)
+    return gdata, cm, dict(ntx=ntx, nty=nty, tx=tx, ty=ty, s_ch=s_ch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tx,ty,s_ch", [(16, 16, 0), (16, 16, 3),
+                                        (64, 32, 0), (64, 32, 3)])
+def test_blend_kernels_on_adversarial_pairs(cuda, tx, ty, s_ch):
+    """Kernels B and C, whose warps cull pairs by rectangle, against their
+    plain versions (which cull nothing) on the cull test's adversarial
+    pairs: planes at the blend tolerances, gradients within 5e-5 of each
+    column group's max."""
+    gdata, cm, kw = _adversarial_scene(tx, ty, s_ch, cuda)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=cuda)
+    start, end = blend.tile_chunk_ranges(cm, kw["ntx"] * kw["nty"])
+    m = (start >= 0) & (end > start)
+    got = blend.blend_forward(gdata, cm, bg, **kw)
+    ref = blend.blend_forward_plain(gdata, cm, bg, **kw)
+    _assert_planes_close(got[m], ref[m], s_ch)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    dout = torch.randn(got.shape, generator=gen, device=cuda)
+    stat = dict(stat_width=80, stat_height=48)
+    g_k = blend.blend_backward(gdata, cm, bg, got, dout, **kw, **stat)
+    g_p = blend.blend_backward_plain(gdata, cm, bg, ref, dout, **kw, **stat)
+    for cols in ([0, 1], [2, 3, 4], [5], [6, 7, 8], [9], [10],
+                 list(range(11, 11 + s_ch))):
+        if cols:
+            assert _rel_err(g_k[:, cols], g_p[:, cols]) < 5e-5, cols

@@ -38,7 +38,7 @@ from .conftest import random_gaussians  # noqa: E402
 from .torch_parity import camera_pair, one_cpu_thread, tt  # noqa: E402,F401
 
 TOOLS = ("gather_fold", "blend_floor", "floor_bench", "floor_bench2",
-         "mm_orient")
+         "mm_orient", "bwd_ablate")
 
 
 def _rel_err(got, ref):
