@@ -8,11 +8,18 @@ Phases, one JSON line each (any failure ends the run with exit code 1):
           (one nvcc per source, in parallel) into build/kernels;
   kernel  hold each kernel against its plain PyTorch version on the card
           at the main path's shapes: the blend forward (kernel B) and the
-          blend backward (kernel C, on kernel B's planes, against the plain
-          backward on the plain forward's, with a seeded random cotangent)
+          blend backward (kernel C, against the plain backward on the
+          same inputs: kernel B's planes and a seeded random cotangent;
+          and, as a composite of both kernels, against the plain
+          backward on the plain forward's planes; the plain versions
+          keep their running sums in float64 and take the transmittance
+          pair by pair, as the kernels do, so that they stop each pixel
+          at the same pair)
           on the frozen bench scene's pair lists (600k Gaussians,
           1066x1600) at 64x32 and 16x16 tiles with S=0 and S=3; the fused
-          cummax (kernel A) at the 16x16 capacity with k=1 and k=2. Prints
+          cummax (kernel A, `tools/scan_bench.measure`: bit for bit on
+          random, marker, all-INT_MIN, decreasing, max-first and max-last
+          arrays) at the 16x16 capacity with k=1 and k=2. Prints
           the errors, tolerance, kernel / plain / library times, the
           bound, and kernels B's and C's registers, shared memory and
           resident blocks per SM (`blend.kernel_info`). Every time in the
@@ -53,19 +60,29 @@ Phases, one JSON line each (any failure ends the run with exit code 1):
           kernels B and C against their plain versions, as in phase
           kernel, on the pair lists of the loop's first frame (the main
           path's own inputs: sigma 10-400 px at opacity 0.1, which the
-          pair culling hardly thins, unlike the frozen scene's);
+          pair culling hardly thins, unlike the frozen scene's), the
+          stripped forms of B (`tools/blend_floor`) there against their
+          plain versions and timed beside B (B's staging floor), and
+          kernel A at the loop's capacity; kernels B and C also on
+          three frames at which the camera had moved (the last such
+          among them), C with six cotangent seeds on each frame, its worst
+          mean-column and opacity errors printed beside the 5e-5 limit
+          (the composite held to it on the first frame and seed, as in
+          phase kernel, and printed for the rest);
   train   the trainer (`apps.train.run_training`) on the synthetic scene
           at 600k background Gaussians + 2 actors, 1066x1600, 16x16: 60
           steps with one densify-and-prune event; the L1 of the trainer's
           four evaluation views must fall before the event and after it;
           then one opacity reset (losses, evaluations, median step ms,
-          active counts, retries, launches, peak memory), and `python -m
+          active counts, retries, launches, peak memory), kernel A at the
+          trainer's capacity, and `python -m
           gaussianrpg_tpu_torch.apps.train --synthetic --iterations 30`
           in a subprocess.
 The line before the last is the kernel table ({"kernels": [...]}: kernels
 A, B and C with their launches summed over the closed loop, train_frame
-and train runs, B's and C's times from the loop frame, their errors the
-largest over every shape checked; the five tool kernels with their
+and train runs, B's and C's times from the loop frame, A's from the
+trainer's capacity, their errors the largest over every shape checked;
+the five tool kernels with their
 launches in the tools' runs, each counted from zero); the card's name
 and power limit are printed first and again before it; the last line is
 the device verdict.
@@ -80,13 +97,12 @@ import subprocess
 import sys
 import time
 
-PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
-PEAK_FP32_PER_S = 67e12      # H100 SXM FP32 outside the tensor cores
 RTOL, ATOL, ATOL_DEPTH = 1e-4, 1e-5, 1e-4
 # a pixel whose transmittance test lands within rounding of the 1e-4 stop
 # threshold may stop one pair earlier or later under the kernel's
-# sequential product than under the plain version's cumulative product;
-# at most this share of pixels may differ beyond the tolerance
+# sequential product than under the plain version's cumulative product
+# (the CPU path's; the kernel checks' plain versions replay the sequential
+# one); at most this share of pixels may differ beyond the tolerance
 MAX_FLIP_SHARE = 1e-5
 # gradients: relative to the max of each compared quantity (the JAX
 # package's tolerance for its own blend backward, tests/test_pallas.py)
@@ -117,6 +133,9 @@ def check(cond, phase, msg):
 
 
 def bound(bytes_moved, ops):
+    from gaussianrpg_tpu_torch.tools._timing import (PEAK_BYTES_PER_S,
+                                                     PEAK_FP32_PER_S)
+
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_FP32_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
@@ -159,9 +178,13 @@ def rel_err(torch, got, ref):
     return float((got - ref).abs().max()) / scale if scale else 0.0
 
 
-def check_blend_fwd(torch, blend, gdata, lists, bg, kw, scene):
+def check_blend_fwd(torch, blend, gdata, lists, bg, kw, scene, timed=True):
     """Kernel B against the plain forward on one frame's pair rows and
-    lists; returns the record, both planes and the live pair-pixels."""
+    lists (timed unless `timed` is false); returns the record, both
+    planes and the live pair-pixels. The plain version sums in float64
+    and takes the transmittance pair by pair, as the kernels do
+    (`sum_dtype`, `sequential`), so that it stops each pixel at the same
+    pair; its time is that of its default form."""
     from gaussianrpg_tpu_torch.tools._timing import device_ms
 
     cm = lists.chunk_meta
@@ -172,13 +195,16 @@ def check_blend_fwd(torch, blend, gdata, lists, bg, kw, scene):
 
     kern = run_kernel()
     torch.cuda.synchronize()
-    plain, live = blend.blend_forward_plain(gdata, cm, bg, count_live=True,
-                                            **kw)
+    plain, live = blend.blend_forward_plain(
+        gdata, cm, bg, count_live=True, sum_dtype=torch.float64,
+        sequential=True, **kw)
     err, outliers, pixels = compare_planes(torch, kern, plain,
                                            lists.tile_nonempty, s_ch)
-    ms = device_ms(run_kernel, reps=10)
-    plain_ms = device_ms(lambda: blend.blend_forward_plain(
-        gdata, cm, bg, **kw), reps=1, warmup=0)
+    ms = plain_ms = None
+    if timed:
+        ms = device_ms(run_kernel, reps=10)
+        plain_ms = device_ms(lambda: blend.blend_forward_plain(
+            gdata, cm, bg, **kw), reps=1, warmup=0)
     raw = int(lists.raw_total)
     written = int(lists.tile_nonempty.sum())
     nbytes = (raw * gdata.shape[1] * 4 + cm.numel() * 4
@@ -201,34 +227,56 @@ def check_blend_fwd(torch, blend, gdata, lists, bg, kw, scene):
     return rec, kern, plain, live
 
 
+def cotangent(torch, planes, seed):
+    """The seeded random cotangent of a frame's planes that kernel C's
+    checks use."""
+    gen = torch.Generator(device=planes.device).manual_seed(seed)
+    return torch.randn(planes.shape, generator=gen, device=planes.device)
+
+
 def check_blend_bwd(torch, blend, gdata, lists, bg, kern, plain, live, kw,
-                    W, H, seed, scene):
-    """Kernel C on kernel B's planes against the plain backward on the
-    plain forward's planes (each backward replays its own forward), with
-    one seeded random cotangent of the planes."""
+                    W, H, seed, scene, timed=True, fail=True,
+                    composite=True):
+    """Kernel C against the plain backward on the same inputs (kernel B's
+    planes and a seeded random cotangent of them), the plain version in
+    the kernels' arithmetic (float64 running sums, the transmittance pair
+    by pair: `sum_dtype`, `sequential`). Also the plain backward on the
+    plain forward's planes (`rel_err_composite`): kernel B's float32 r,
+    g, b and alpha sums carried through dL/dalpha's suffix, held to the
+    same limit where `composite` is true. Timed unless `timed` is false;
+    the phase fails on a disagreement unless `fail` is false (the
+    record's `ok` says)."""
     from gaussianrpg_tpu_torch.tools._timing import device_ms
 
-    gen = torch.Generator(device=gdata.device).manual_seed(seed)
-    dout = torch.randn(kern.shape, generator=gen, device=gdata.device)
     cm = lists.chunk_meta
+    dout = cotangent(torch, kern, seed)
     bkw = dict(kw, stat_width=W, stat_height=H)
 
     def run_kernel():
         return blend.blend_backward(gdata, cm, bg, kern, dout, **bkw)
 
-    def run_plain():
-        return blend.blend_backward_plain(gdata, cm, bg, plain, dout, **bkw)
+    def run_plain(planes=plain, **as_kernels):
+        return blend.blend_backward_plain(gdata, cm, bg, planes, dout,
+                                          **as_kernels, **bkw)
 
     got = run_kernel()
     torch.cuda.synchronize()
-    ref = run_plain()
+    as_kernels = dict(sum_dtype=torch.float64, sequential=True)
+    ref = run_plain(kern, **as_kernels)
     s_ch = kw["s_ch"]
-    errs = {name: rel_err(torch, got[:, cols], ref[:, cols])
-            for name, cols in grad_groups(s_ch)}
+
+    def group_errs(ref):
+        return {name: rel_err(torch, got[:, cols], ref[:, cols])
+                for name, cols in grad_groups(s_ch)}
+
+    errs = group_errs(ref)
+    errs_comp = group_errs(run_plain(plain, **as_kernels))
     rest_zero = not bool(got[:, 11 + s_ch:].any()) and not bool(
         got[~lists.pair_valid].any())
-    ms = device_ms(run_kernel, reps=5)
-    plain_ms = device_ms(run_plain, reps=1, warmup=0)
+    ms = plain_ms = None
+    if timed:
+        ms = device_ms(run_kernel, reps=5)
+        plain_ms = device_ms(run_plain, reps=1, warmup=0)
     nf = gdata.shape[1]
     n_pix = kw["tx"] * kw["ty"]
     raw = int(lists.raw_total)
@@ -237,11 +285,14 @@ def check_blend_bwd(torch, blend, gdata, lists, bg, kern, plain, live, kw,
               + 2 * written * (5 + s_ch) * n_pix * 4
               + gdata.shape[0] * nf * 4)
     b_ms, b_by = bound(nbytes, live * (21 + 45 + 4 * s_ch))
-    ok = rest_zero and max(errs.values()) <= GRAD_RTOL
-    rec = dict(phase="kernel", kernel="blend_bwd", scene=scene,
+    ok = rest_zero and max(errs.values()) <= GRAD_RTOL and not (
+        composite and max(errs_comp.values()) > GRAD_RTOL)
+    rec = dict(phase="kernel", kernel="blend_bwd", scene=scene, seed=seed,
                tile=f"{kw['tx']}x{kw['ty']}", s_ch=s_ch, pairs=raw,
                capacity=gdata.shape[0], live_pair_pixels=live,
-               rel_err=errs, max_abs_err=float((got - ref).abs().max()),
+               rel_err=errs, rel_err_composite=errs_comp,
+               composite_checked=composite,
+               max_abs_err=float((got - ref).abs().max()),
                tolerance=f"{GRAD_RTOL} of each column group's max",
                other_columns_zero=rest_zero, ms=ms, plain_ms=plain_ms,
                bound_ms=b_ms, bound_by=b_by, library_ms=None,
@@ -249,8 +300,23 @@ def check_blend_bwd(torch, blend, gdata, lists, bg, kern, plain, live, kw,
                                            ty=kw["ty"], s_ch=s_ch, nf=nf),
                ok=ok)
     emit(rec)
-    check(ok, "kernel", f"blend_bwd {scene} {rec['tile']} S={s_ch} "
-          "disagrees")
+    if fail:
+        check(ok, "kernel", f"blend_bwd {scene} {rec['tile']} S={s_ch} "
+              "disagrees")
+    return rec
+
+
+def check_cummax(phase, scene, p, k):
+    """Kernel A (`tools/scan_bench.measure`) at k arrays of length P: bit
+    for bit against its plain version on every pattern, and its device
+    ms beside the plain version's, `torch.cummax`'s, the bound and the
+    profiler trace's reading."""
+    from gaussianrpg_tpu_torch.tools import scan_bench
+
+    rec = scan_bench.measure(p, k, "cuda")
+    ok = rec["max_abs_err"] == 0
+    emit(dict(phase=phase, kernel="cummax", scene=scene, **rec, ok=ok))
+    check(ok, phase, f"fused_cummax {scene} P={p} k={k} disagrees")
     return rec
 
 
@@ -258,11 +324,10 @@ def phase_kernels(torch):
     """Kernels vs plain versions on the frozen scene."""
     import numpy as np
 
-    from gaussianrpg_tpu_torch.ops import blend, scan
+    from gaussianrpg_tpu_torch.ops import blend
     from gaussianrpg_tpu_torch.ops.rasterize import (pair_rows,
                                                      primitive_fields,
                                                      suggest_binning_sizes)
-    from gaussianrpg_tpu_torch.tools._timing import device_ms, kernel_trace
     from gaussianrpg_tpu_torch.utils.synthetic import build_frozen_scene
 
     dev = torch.device("cuda")
@@ -299,42 +364,8 @@ def phase_kernels(torch):
             torch.cuda.empty_cache()
 
     p = out["sizes"][(16, 16)].capacity
-    gen = torch.Generator(device=dev).manual_seed(0)
     for k in (1, 2):
-        rand = [torch.randint(-2 ** 31, 2 ** 31 - 1, (p,), dtype=torch.int32,
-                              generator=gen, device=dev) for _ in range(k)]
-        marks = []
-        for _ in range(k):
-            pos = torch.sort(torch.randint(0, p, (n,), generator=gen,
-                                           device=dev)).values
-            m = torch.zeros(p, dtype=torch.int32, device=dev)
-            m.scatter_reduce_(0, pos, torch.arange(1, n + 1, dtype=torch.int32,
-                                                   device=dev), "amax")
-            marks.append(m)
-        err = 0
-        for xs in (rand, marks):
-            got = scan.fused_cummax(xs)
-            ref = scan.fused_cummax_plain(xs)
-            err = max(err, max(int((a.long() - b.long()).abs().max())
-                               for a, b in zip(got, ref)))
-        stacked = torch.stack(marks)
-        ms = device_ms(lambda: scan.fused_cummax(marks), reps=20)
-        plain_ms = device_ms(lambda: scan.fused_cummax_plain(marks),
-                             reps=20)
-        lib_ms = device_ms(lambda: torch.cummax(stacked, dim=1),
-                           reps=20)
-        # the same calls' kernels from a profiler trace: a second reading
-        trace = kernel_trace(lambda: scan.fused_cummax(marks), reps=20)
-        b_ms, b_by = bound(8 * k * p, 0)
-        rec = dict(phase="kernel", kernel="cummax", k=k, p=p,
-                   max_abs_err=err, tolerance="exact", ms=ms,
-                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                   bound_by=b_by, trace_ms=sum(t["ms_per_call"]
-                                               for t in trace),
-                   trace=trace, ok=err == 0)
-        emit(rec)
-        check(err == 0, "kernel", f"fused_cummax k={k} disagrees")
-        out["cummax"][k] = rec
+        out["cummax"][k] = check_cummax("kernel", "frozen 16x16", p, k)
     out["scene"] = (cam, (means, opac, colors, scales, quats), H, W)
     return out
 
@@ -396,6 +427,19 @@ def check_gather(torch, mod, run):
                 bound_ms=b_ms, bound_by=b_by, library_ms=r["library_ms"])
 
 
+def stripped_errors(torch, mod, variant, g, cm, n_tiles, n_pix):
+    """One stripped form of kernel B against its float64 plain version:
+    (planes' relative error, per-tile staged sums' relative error, the
+    larger absolute error), over the tiles with a chunk range."""
+    got, staged = mod.stripped_forward(variant, g, cm, n_tiles=n_tiles,
+                                       n_pix=n_pix)
+    ref, staged_ref, written = mod.stripped_forward_plain(
+        variant, g.double(), cm, n_tiles=n_tiles, n_pix=n_pix)
+    d, rel = written_rel_err(torch, got, ref, written)
+    ds, rel_s = written_rel_err(torch, staged, staged_ref, written)
+    return rel, rel_s, max(d, ds)
+
+
 def check_blend_floor(torch, mod, run):
     """The three stripped forms of kernel B against their plain versions
     (float64 sums) at the floor and the real input, both tilings: the
@@ -412,16 +456,10 @@ def check_blend_floor(torch, mod, run):
         for variant in mod.VARIANTS:
             for tag in ("floor", "real"):
                 cm, g = inputs[tag]
-                got, staged = mod.stripped_forward(
-                    variant, g, cm, n_tiles=n_tiles, n_pix=n_pix)
-                ref, staged_ref, written = mod.stripped_forward_plain(
-                    variant, g.double(), cm, n_tiles=n_tiles, n_pix=n_pix)
-                d, rel = written_rel_err(torch, got, ref, written)
-                ds, rel_s = written_rel_err(torch, staged, staged_ref,
-                                            written)
-                errs[f"{tiling} {variant} {tag}"] = rel
-                errs[f"{tiling} {variant} {tag} staged"] = rel_s
-                abs_err = max(abs_err, d, ds)
+                key = f"{tiling} {variant} {tag}"
+                errs[key], errs[f"{key} staged"], d = stripped_errors(
+                    torch, mod, variant, g, cm, n_tiles, n_pix)
+                abs_err = max(abs_err, d)
         if tiling == "64x32":
             cm, g = inputs["real"]
             plain_ms = device_ms(lambda: mod.stripped_forward_plain(
@@ -1045,10 +1083,51 @@ def recorded_pair_lists(render, cam):
     return got[0]
 
 
+def loop_frame_floor(torch, gdata, lists, fwd):
+    """The stripped forms of kernel B (`tools/blend_floor`) on one loop
+    frame's pair lists, each against its float64 plain version and timed
+    beside kernel B's time on the same lists: `stage` − `empty` is the
+    floor of B's chunk staging on the main path's own inputs."""
+    from gaussianrpg_tpu_torch.ops import blend
+    from gaussianrpg_tpu_torch.tools import blend_floor as bf
+    from gaussianrpg_tpu_torch.tools._timing import device_ms
+
+    n_tiles = lists.n_tiles_x * lists.n_tiles_y
+    n_pix = lists.tile_x * lists.tile_y
+    cm = lists.chunk_meta
+    start, end = blend.tile_chunk_ranges(cm, n_tiles)
+    forms = {}
+    for variant in bf.VARIANTS:
+        rel, rel_s, d = stripped_errors(torch, bf, variant, gdata, cm,
+                                        n_tiles, n_pix)
+        ms = device_ms(lambda v=variant: bf.stripped_forward(
+            v, gdata, cm, n_tiles=n_tiles, n_pix=n_pix), reps=10)
+        forms[variant] = dict(rel_err=rel, staged_rel_err=rel_s,
+                              max_abs_err=d, ms=ms)
+    ok = all(max(f["rel_err"], f["staged_rel_err"]) <= TOOLS_RTOL
+             for f in forms.values())
+    emit(dict(phase="loop", kernel="blend_floor", scene="loop frame",
+              tile=f"{lists.tile_x}x{lists.tile_y}",
+              pairs=int(lists.raw_total), **bf.range_counts(start, end),
+              forms=forms, blend_fwd_ms=fwd["ms"],
+              staging_ms=forms["stage"]["ms"] - forms["empty"]["ms"],
+              tolerance=f"{TOOLS_RTOL} of the written blocks' max", ok=ok))
+    check(ok, "loop", "a stripped form disagrees on the loop frame")
+
+
+C_SEEDS = (7, 8, 9, 10, 11, 12)   # kernel C's cotangent seeds, loop frames
+C_FRAMES = 4   # loop frames C is checked on: the first, the last, between
+
+
 def phase_loop(torch):
-    """The closed loop at full size; then kernels B and C against their
-    plain versions on the pair lists of the loop's first frame (the main
-    path's own inputs: its scene culls little, unlike the frozen one)."""
+    """The closed loop at full size; then, on the pair lists of the loop's
+    first frame (the main path's own inputs: its scene culls little,
+    unlike the frozen one), kernels B and C against their plain versions
+    and timed, the stripped forms of B beside B, and kernel A at the
+    loop's capacity. Kernels B and C are checked on C_FRAMES frames, C with
+    C_SEEDS cotangents on each; the worst mean-column and opacity errors,
+    C's and the composite's (`check_blend_bwd`), are printed beside the
+    limit."""
     import numpy as np
 
     from gaussianrpg_tpu_torch.ops import blend
@@ -1061,10 +1140,11 @@ def phase_loop(torch):
         width=1600, height=1066, n_background=600_000,
         bkgd_capacity=600_000, device="cuda")
     setup_s = time.time() - t0
-    bad = []
+    bad, cams = [], []
 
     def checked_render(cam):
         img = render_fn(cam)
+        cams.append(cam)
         if img.shape != (3, 1066, 1600) or not np.isfinite(img).all():
             bad.append(cam)
         return img
@@ -1086,15 +1166,54 @@ def phase_loop(torch):
               setup_s=setup_s, bad_frames=len(bad), launches=launches,
               ok=ok))
     check(ok, "loop", "closed loop failed")
-    gdata, lists = recorded_pair_lists(render_fn, cam0)
-    kw = dict(ntx=lists.n_tiles_x, nty=lists.n_tiles_y, tx=lists.tile_x,
-              ty=lists.tile_y, s_ch=0)
     bg = torch.tensor([0.1, 0.2, 0.3], device="cuda")
-    fwd, kern, plain, live = check_blend_fwd(torch, blend, gdata, lists, bg,
-                                             kw, "loop frame")
-    bwd = check_blend_bwd(torch, blend, gdata, lists, bg, kern, plain, live,
-                          kw, 1600, 1066, seed=7, scene="loop frame")
-    return launches, fwd, bwd
+    # the first frame as PR 4 recorded it (the loop's template camera),
+    # then C_FRAMES - 1 of the frames at which the camera had moved by
+    # more than 1 mm since the frame before (the car stands once it has
+    # braked), the last among them
+    moved = [0] + [i for i in range(1, len(cams)) if float(
+        (cams[i].cam_center - cams[i - 1].cam_center).norm()) > 1e-3]
+    n = len(moved)
+    picks = [("first", cam0)] + [
+        (f"{moved[j] + 1} of {len(cams)}", cams[moved[j]]) for j in sorted(
+            {i * (n - 1) // (C_FRAMES - 1) for i in range(1, C_FRAMES)})]
+    margins = []
+    for frame, cam in picks:
+        gdata, lists = recorded_pair_lists(render_fn, cam)
+        kw = dict(ntx=lists.n_tiles_x, nty=lists.n_tiles_y, tx=lists.tile_x,
+                  ty=lists.tile_y, s_ch=0)
+        first = frame == "first"
+        scene = f"loop frame ({frame})"
+        rec_b, kern, plain, live = check_blend_fwd(
+            torch, blend, gdata, lists, bg, kw, scene, timed=first)
+        for seed in C_SEEDS:
+            rec_c = check_blend_bwd(
+                torch, blend, gdata, lists, bg, kern, plain, live, kw, 1600,
+                1066, seed=seed, scene=scene, timed=first and seed == 7,
+                fail=False, composite=first and seed == 7)
+            margins.append(rec_c)
+            if first and seed == 7:
+                fwd, bwd = rec_b, rec_c
+        del kern, plain
+        if first:
+            loop_frame_floor(torch, gdata, lists, fwd)
+            cummax = check_cummax("loop", "loop capacity", gdata.shape[0], 1)
+        del gdata, lists
+        torch.cuda.empty_cache()
+    worst = {f"{g}{c}": max(r[f"rel_err{c}"][g] for r in margins)
+             for g in ("mean2d", "opacity") for c in ("", "_composite")}
+    ok = all(r["ok"] for r in margins)
+    emit(dict(phase="loop", check="blend_bwd margin", limit=GRAD_RTOL,
+              errors=[dict(scene=r["scene"], seed=r["seed"],
+                           mean2d=r["rel_err"]["mean2d"],
+                           opacity=r["rel_err"]["opacity"],
+                           worst_group=max(r["rel_err"].values()),
+                           composite={g: r["rel_err_composite"][g] for g in
+                                      ("mean2d", "opacity")},
+                           composite_checked=r["composite_checked"])
+                      for r in margins], worst=worst, ok=ok))
+    check(ok, "loop", "kernel C disagrees on a loop frame")
+    return launches, fwd, bwd, cummax
 
 
 TRAIN_STEPS = 60
@@ -1180,6 +1299,8 @@ def phase_train(torch):
     check(ok, "train", "trainer run failed")
     del state, models, cam_gt
     torch.cuda.empty_cache()
+    cummax = check_cummax("train", "trainer capacity", rec["opts"].capacity,
+                          1)
 
     t0 = time.time()
     cmd = [sys.executable, "-m", "gaussianrpg_tpu_torch.apps.train",
@@ -1191,7 +1312,7 @@ def phase_train(torch):
               seconds=time.time() - t0, last_line=tail[0],
               ok=proc.returncode == 0))
     check(proc.returncode == 0, "train", "training CLI failed")
-    return launches
+    return launches, cummax
 
 
 def main():
@@ -1232,19 +1353,20 @@ def main():
         runs = [phase_train_frame(torch, kout)]
         del kout["scene"]
         torch.cuda.empty_cache()
-        loop_launches, b, d = phase_loop(torch)
+        loop_launches, b, d, a_loop = phase_loop(torch)
         runs.append(loop_launches)
-        runs.append(phase_train(torch))
+        train_launches, c = phase_train(torch)
+        runs.append(train_launches)
     except PhaseFailed as e:
         print(f"chip_smoke: {e}", file=sys.stderr)
         return 1
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
-    # B and C: times on the loop frame (their main path's inputs), errors
-    # over every shape checked
-    c = kout["cummax"][1]
+    # B and C: times on the loop frame (their main path's inputs), A at
+    # the trainer's capacity; errors over every shape checked
     errs_b = max(r["max_abs_err"]
                  for r in [b, *kout["blend_fwd"].values()])
-    errs_c = max(r["max_abs_err"] for r in kout["cummax"].values())
+    errs_c = max(r["max_abs_err"]
+                 for r in [a_loop, c, *kout["cummax"].values()])
     errs_d = max(r["max_abs_err"]
                  for r in [d, *kout["blend_bwd"].values()])
     emit({"kernels": [

@@ -306,13 +306,18 @@ __global__ void __launch_bounds__(kMaxThreads) blend_bwd(Params p) {
   const float* o = p.out + (long long)tile * nfo * n_pix;
   const float* d = p.dout + (long long)tile * nfo * n_pix;
 
-  float T[PPT], pref[PPT], tot[PPT], ga[PPT];
+  // the planes' total and the running sum of w*e in double: their
+  // difference, the suffix of dL/dalpha, is small where a pixel nears
+  // saturation, and float32 sums over hundreds of pairs rounded it by as
+  // much (kernel B keeps its depth plane in double for the same reason)
+  float T[PPT], ga[PPT];
+  double pref[PPT], tot[PPT];
   bool done[PPT];
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
     const int pix = lay.pix(k, p.tx);
     T[k] = 1.0f;
-    pref[k] = 0.0f;
+    pref[k] = 0.0;
     done[k] = false;
     float* gk = my_g + k * nc * kPad + lane;
     float g[4];
@@ -323,16 +328,19 @@ __global__ void __launch_bounds__(kMaxThreads) blend_bwd(Params p) {
     }
     ga[k] = d[4 * n_pix + pix];
     const float t_final = 1.0f - o[4 * n_pix + pix];
-    float s = (o[pix] - t_final * bg0) * g[0] +
-              (o[n_pix + pix] - t_final * bg1) * g[1] +
-              (o[2 * n_pix + pix] - t_final * bg2) * g[2] +
-              o[3 * n_pix + pix] * g[3] + o[4 * n_pix + pix] * ga[k];
+    // products of two floats are exact in double
+    double s = static_cast<double>(o[pix] - t_final * bg0) * g[0] +
+               static_cast<double>(o[n_pix + pix] - t_final * bg1) * g[1] +
+               static_cast<double>(o[2 * n_pix + pix] - t_final * bg2) * g[2] +
+               static_cast<double>(o[3 * n_pix + pix]) * g[3] +
+               static_cast<double>(o[4 * n_pix + pix]) * ga[k];
     for (int c = 0; c < p.s_ch; ++c) {
       const float gs = d[(5 + c) * n_pix + pix];
       gk[(4 + c) * kPad] = gs;   // read back by this warp only
-      s += o[(5 + c) * n_pix + pix] * gs;
+      s += static_cast<double>(o[(5 + c) * n_pix + pix]) * gs;
     }
-    tot[k] = s + t_final * (g[0] * bg0 + g[1] * bg1 + g[2] * bg2);
+    tot[k] = s + static_cast<double>(t_final) *
+                     (g[0] * bg0 + g[1] * bg1 + g[2] * bg2);
   }
 
   const uint32_t bytes = static_cast<uint32_t>(rows * sizeof(float));
@@ -454,8 +462,9 @@ __global__ void __launch_bounds__(kMaxThreads) blend_bwd(Params p) {
                           bd.x * gk[2 * kPad] + bd.y * gk[3 * kPad] + ga[k];
                 for (int s = 0; s < p.s_ch; ++s)
                   e += gr[11 + s] * gk[(4 + s) * kPad];
-                pref[k] += w * e;
-                const float dl = e * T[k] - (tot[k] - pref[k]) / one_m;
+                pref[k] += static_cast<double>(w * e);
+                const float dl =
+                    e * T[k] - static_cast<float>(tot[k] - pref[k]) / one_m;
                 qv = g.op * (G[u] * dl);
                 gx = -qv * (g.ca * dx[u] + g.cb * dy[u]);
                 gy = -qv * (g.cc * dy[u] + g.cb * dx[u]);

@@ -119,14 +119,21 @@ __global__ void __launch_bounds__(256, min_blocks<PPT>()) blend_fwd(Params p) {
   const float ry = static_cast<float>((tile / p.ntx) * p.ty + lay.y0);
   const float xl = rx + lay.lx, yl = ry + lay.ly;
 
-  float T[PPT], acc[PPT][5];
+  // r, g, b, alpha in float; depth (tens of metres, the planes' largest
+  // values) in double: kernel C's dL/dalpha takes the difference of this
+  // plane's total and its own running sum, which a float32 running sum
+  // over hundreds of pairs leaves with rounding of the size of the
+  // difference at saturated pixels
+  float T[PPT], acc[PPT][4];   // r, g, b, alpha
+  double dep[PPT];
   bool done[PPT];
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
     T[k] = 1.0f;
     done[k] = false;
+    dep[k] = 0.0;
 #pragma unroll
-    for (int c = 0; c < 5; ++c) acc[k][c] = 0.0f;
+    for (int c = 0; c < 4; ++c) acc[k][c] = 0.0f;
   }
   for (int i = threadIdx.x; i < p.s_ch * n_pix; i += blockDim.x)
     sem_acc[i] = 0.0f;
@@ -226,8 +233,8 @@ __global__ void __launch_bounds__(256, min_blocks<PPT>()) blend_fwd(Params p) {
             acc[k][0] += w * rg.x;
             acc[k][1] += w * rg.y;
             acc[k][2] += w * bd.x;
-            acc[k][3] += w * bd.y;
-            acc[k][4] += w;
+            dep[k] += static_cast<double>(w * bd.y);
+            acc[k][3] += w;
             const int pix = lay.pix(k, p.tx);
             for (int s = 0; s < p.s_ch; ++s)
               sem_acc[s * n_pix + pix] += w * g[11 + s];
@@ -269,8 +276,8 @@ __global__ void __launch_bounds__(256, min_blocks<PPT>()) blend_fwd(Params p) {
     o[pix] = acc[k][0] + T[k] * bg0;
     o[n_pix + pix] = acc[k][1] + T[k] * bg1;
     o[2 * n_pix + pix] = acc[k][2] + T[k] * bg2;
-    o[3 * n_pix + pix] = acc[k][3];
-    o[4 * n_pix + pix] = acc[k][4];
+    o[3 * n_pix + pix] = static_cast<float>(dep[k]);
+    o[4 * n_pix + pix] = acc[k][3];
     for (int s = 0; s < p.s_ch; ++s)
       o[(5 + s) * n_pix + pix] = sem_acc[s * n_pix + pix];
   }

@@ -162,6 +162,16 @@ def _cumprod_excl(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.ones_like(y[:, :1]), y[:, :-1]], dim=1)
 
 
+def _seqprod_excl(t_run: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """t_run [B, P] times the exclusive running product of x [B, G, P]
+    along dim 1, one factor at a time in order: the transmittance as
+    kernels B and C round it (a skipped pair's factor is 1, exact)."""
+    cols = [t_run]
+    for j in range(x.shape[1] - 1):
+        cols.append(cols[-1] * x[:, j])
+    return torch.stack(cols, dim=1)
+
+
 def _plain_batches(chunk_meta, n_tiles, n_pix):
     """Live tiles in batches of similar chunk counts: yields (tiles,
     chunk counts, first chunks) of each batch, tiles sorted by count."""
@@ -177,10 +187,13 @@ def _plain_batches(chunk_meta, n_tiles, n_pix):
         yield tb, nchunks[tb], start[tb].long()
 
 
-def _replay_chunk(gdata, rows, px, py, t_run, done, s_ch):
+def _replay_chunk(gdata, rows, px, py, t_run, done, s_ch,
+                  sequential=False):
     """One chunk of the forward for a batch of tiles, by the TPU kernel's
     formulation (`pallas_blend._alpha_terms` + `_blend_core`). rows [B, G]
-    pair slots, px/py [B, P], t_run [B, P], done [B, P] bool."""
+    pair slots, px/py [B, P], t_run [B, P], done [B, P] bool. The
+    transmittance is the TPU kernel's log-step product, or with
+    `sequential` the kernels' product pair by pair."""
     gd = gdata[rows]                                      # [B, G, NF]
     t = {k: gd[:, :, f:f + 1] for k, f in (
         ("mx", F_MX), ("my", F_MY), ("ca", F_CA), ("cb", F_CB),
@@ -194,7 +207,10 @@ def _replay_chunk(gdata, rows, px, py, t_run, done, s_ch):
     alpha = torch.clamp(alpha_raw, max=0.99)
     skip = (power > 0.0) | (alpha_raw < (1.0 / 255.0))
     one_m = torch.where(skip, torch.ones_like(alpha), 1.0 - alpha)
-    t_excl = t_run[:, None, :] * _cumprod_excl(one_m)
+    if sequential:
+        t_excl = _seqprod_excl(t_run, one_m)
+    else:
+        t_excl = t_run[:, None, :] * _cumprod_excl(one_m)
     z = t_excl * one_m
     alive = z >= 1e-4
     contrib = (~skip) & alive & (~done[:, None, :])
@@ -228,16 +244,23 @@ def _pixel_coords(tb, p, ntx, tx, ty):
 
 def blend_forward_plain(gdata, chunk_meta, bg, *, ntx: int, nty: int,
                         tx: int, ty: int, s_ch: int,
-                        count_live: bool = False):
+                        count_live: bool = False, sum_dtype=None,
+                        sequential: bool = False):
     """Plain PyTorch version of the blend forward. Processes the r-th chunk
     of a batch of tiles at once. With `count_live`, also returns the number
     of (real pair, pixel) evaluations the blend needs: pairs with nonzero
-    opacity met before or at the pixel's stopping pair."""
+    opacity met before or at the pixel's stopping pair. The planes are
+    summed in gdata's dtype, as the TPU kernel sums them, or in
+    `sum_dtype` (float64: as kernels B and C keep the sums that the
+    backward's suffix subtracts; `chip_smoke.py` holds the kernels to that
+    form on the card). `sequential` replays the kernels' transmittance
+    product in place of the TPU kernel's (`_replay_chunk`)."""
     dev = gdata.device
     n_tiles = ntx * nty
     n_pix = tx * ty
     c_feat = 5 + s_ch
     dt = gdata.dtype           # float32; the tests also run it in float64
+    sums = sum_dtype or dt
     planes = torch.zeros((n_tiles, c_feat, n_pix), dtype=dt, device=dev)
     p = torch.arange(n_pix, device=dev)
     gi = torch.arange(G_CHUNK, device=dev)
@@ -248,20 +271,21 @@ def blend_forward_plain(gdata, chunk_meta, bg, *, ntx: int, nty: int,
         nt = tb.shape[0]
         t_run = torch.ones((nt, n_pix), dtype=dt, device=dev)
         done = torch.zeros((nt, n_pix), dtype=torch.bool, device=dev)
-        acc = torch.zeros((nt, c_feat, n_pix), dtype=dt, device=dev)
+        acc = torch.zeros((nt, c_feat, n_pix), dtype=sums, device=dev)
         for r in range(int(nb[0])):       # tiles sorted by chunk count
             ia = torch.nonzero(nb > r).flatten()
             rows = (sb[ia] + r)[:, None] * G_CHUNK + gi[None, :]
             d = done[ia]
             c = _replay_chunk(gdata, rows, px[ia], py[ia], t_run[ia], d,
-                              s_ch)
-            acc[ia] += torch.bmm(c["feats"].transpose(1, 2), c["w"])
+                              s_ch, sequential)
+            acc[ia] += torch.bmm(c["feats"].transpose(1, 2).to(sums),
+                                 c["w"].to(sums))
             t_run[ia] = c["t_new"]
             if count_live:
                 live += _live_pairs(c, d)
             done[ia] = d | c["stop"].any(dim=1)
-        rgb = acc[:, 0:3] + t_run[:, None, :] * bg[None, :, None]
-        planes[tb] = torch.cat([rgb, acc[:, 3:]], dim=1)
+        rgb = acc[:, 0:3] + (t_run[:, None, :] * bg[None, :, None]).to(sums)
+        planes[tb] = torch.cat([rgb, acc[:, 3:]], dim=1).to(dt)
     if count_live:
         return planes, int(live)
     return planes
@@ -398,12 +422,18 @@ def kernel_info(kernel: str, *, tx: int, ty: int, s_ch: int,
 
 def blend_backward_plain(gdata, chunk_meta, bg, out, dout, *, ntx: int,
                          nty: int, tx: int, ty: int, s_ch: int,
-                         stat_width: int, stat_height: int) -> torch.Tensor:
+                         stat_width: int, stat_height: int,
+                         sum_dtype=None,
+                         sequential: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the blend backward. Replays the plain
     forward chunk by chunk (so its masks are the plain forward's) and forms
     the TPU kernel's per-pixel terms (`pallas_blend._make_bwd_kernel`):
     e = feats . g, p_incl = running sum of w*e, dL/dalpha =
-    e*T - (tot_ebt - p_incl)/(1 - alpha), then sums them over the pixels."""
+    e*T - (tot_ebt - p_incl)/(1 - alpha), then sums them over the pixels.
+    tot_ebt and p_incl are summed in gdata's dtype, as the TPU kernel sums
+    them, or in `sum_dtype` (float64: as kernel C keeps them; their
+    difference is small where a pixel nears saturation). `sequential`
+    replays the kernels' transmittance product (`_replay_chunk`)."""
     dev = gdata.device
     n_tiles = ntx * nty
     n_pix = tx * ty
@@ -411,6 +441,7 @@ def blend_backward_plain(gdata, chunk_meta, bg, out, dout, *, ntx: int,
     p = torch.arange(n_pix, device=dev)
     gi = torch.arange(G_CHUNK, device=dev)
     dt = gdata.dtype           # float32; the tests also run it in float64
+    sums = sum_dtype or dt
     bg = bg.reshape(3).to(dt)
     half_w, half_h = 0.5 * stat_width, 0.5 * stat_height
     for tb, nb, sb in _plain_batches(chunk_meta, n_tiles, n_pix):
@@ -423,22 +454,24 @@ def blend_backward_plain(gdata, chunk_meta, bg, out, dout, *, ntx: int,
                          * bg[None, :, None], outs[:, 3:]], dim=1)
         bg_dot = g_pix[:, 0] * bg[0] + g_pix[:, 1] * bg[1] \
             + g_pix[:, 2] * bg[2]
-        tot_ebt = torch.sum(tot * g_pix, dim=1) + t_final * bg_dot
+        tot_ebt = torch.sum(tot.to(sums) * g_pix.to(sums), dim=1) \
+            + t_final.to(sums) * bg_dot.to(sums)
         g_cols = torch.cat([g_pix[:, 0:4], g_pix[:, 5:]], dim=1)
         t_run = torch.ones((nt, n_pix), dtype=dt, device=dev)
         done = torch.zeros((nt, n_pix), dtype=torch.bool, device=dev)
-        pref = torch.zeros((nt, n_pix), dtype=dt, device=dev)
+        pref = torch.zeros((nt, n_pix), dtype=sums, device=dev)
         for r in range(int(nb[0])):
             ia = torch.nonzero(nb > r).flatten()
             rows = (sb[ia] + r)[:, None] * G_CHUNK + gi[None, :]
             d = done[ia]
             c = _replay_chunk(gdata, rows, px[ia], py[ia], t_run[ia], d,
-                              s_ch)
+                              s_ch, sequential)
             e = torch.bmm(c["feats"], g_pix[ia])          # [b, G, P]
             w = c["w"]
-            p_incl = pref[ia][:, None, :] + torch.cumsum(w * e, dim=1)
-            dl_da = e * c["t_excl"] - (tot_ebt[ia][:, None, :] - p_incl) \
-                / c["one_m"]
+            p_incl = pref[ia][:, None, :] + torch.cumsum((w * e).to(sums),
+                                                         dim=1)
+            dl_da = e * c["t_excl"] - (tot_ebt[ia][:, None, :] - p_incl
+                                       ).to(dt) / c["one_m"]
             dl_da = torch.where(c["contrib"], dl_da, torch.zeros_like(dl_da))
             q2 = c["g"] * dl_da
             q = c["op"] * q2

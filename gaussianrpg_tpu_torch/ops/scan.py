@@ -1,8 +1,9 @@
 """Fused running max over k int32 arrays (kernel A).
 
 Counterpart of `gaussianrpg_tpu/ops/pallas_scan.py` (`fused_cummax`). On a
-CUDA tensor the wrapper launches the hand-written block scan in
-`csrc/cummax.cu`; on a CPU tensor it uses the plain version, one
+CUDA tensor the wrapper launches the hand-written single-pass scan with
+decoupled look-back in `csrc/cummax.cu` (one memset of its status words,
+one kernel); on a CPU tensor it uses the plain version, one
 `torch.cummax` per array. Every running-max fill of the binning
 (ops/binning.py `_fill`) comes here, zero-padded to a multiple of 65536.
 """
@@ -15,7 +16,6 @@ import torch
 from . import cuda_build
 
 BLOCK = 65536        # the TPU kernel's 512x128 block: P must be a multiple
-KERNEL_BLOCK = 4096  # elements per CUDA block (csrc/cummax.cu)
 MAX_K = 4
 
 launches = 0         # kernel launches through `fused_cummax` (CUDA only)
@@ -41,6 +41,20 @@ def _check(xs) -> None:
         raise ValueError(f"fused_cummax: P={p} must be a multiple of {BLOCK}")
 
 
+def bind(lib: ctypes.CDLL):
+    """(grpg_fused_cummax, grpg_fused_cummax_scratch_bytes) of a built
+    cummax library, with their ctypes signatures."""
+    fn = lib.grpg_fused_cummax
+    fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
+                   ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
+                   ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    size = lib.grpg_fused_cummax_scratch_bytes
+    size.argtypes = [ctypes.c_int, ctypes.c_longlong]
+    size.restype = ctypes.c_longlong
+    return fn, size
+
+
 def fused_cummax(xs) -> list[torch.Tensor]:
     """Running max over each of k same-length int32 arrays, P a multiple
     of 65536. CUDA tensors go through the kernel, CPU tensors through the
@@ -56,15 +70,11 @@ def fused_cummax(xs) -> list[torch.Tensor]:
     if any(x.data_ptr() % 16 for x in xs):
         raise ValueError("fused_cummax: arrays must be 16-byte aligned")
     k, p = len(xs), xs[0].shape[0]
+    fn, size = bind(cuda_build.library("cummax"))
     outs = [torch.empty_like(x) for x in xs]
-    scratch = torch.empty(k * (p // KERNEL_BLOCK), dtype=torch.int32,
+    # the ticket and the tiles' status words (zeroed by the C entry)
+    scratch = torch.empty(size(k, p), dtype=torch.uint8,
                           device=xs[0].device)
-    lib = cuda_build.library("cummax")
-    fn = lib.grpg_fused_cummax
-    fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
-                   ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
-                   ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     ins = (ctypes.c_void_p * k)(*[x.data_ptr() for x in xs])
     ptrs = (ctypes.c_void_p * k)(*[o.data_ptr() for o in outs])
     stream = torch.cuda.current_stream(xs[0].device).cuda_stream

@@ -10,6 +10,9 @@ kernel in `csrc/`:
   mm_orient     the backward's moment contraction, two orientations
                 (mm_orient.cu)
 
+and, with no counterpart there, `scan_bench` (kernel A at the main path's
+capacities, beside other builds of `cummax.cu`) and `bwd_ablate`.
+
 Each module has the CUDA wrapper of its kernel (launch counter `launches`),
 the plain PyTorch version of the same function, `run(device=None,
 small=False) -> dict` and `main()`:

@@ -13,7 +13,9 @@ tiling, where the wrappers' host side outlasts the kernel. As in the
 tools, each repetition gets slightly changed inputs (`scaled` copies,
 made before the timed region). On the CPU, where the tools run their
 plain versions, the host clock times them instead. `kernel_trace` reads
-the kernels a call launches from a `torch.profiler` trace.
+the kernels a call launches from a `torch.profiler` trace. The card's
+peak rates below set the bounds that `scan_bench` and `chip_smoke.py`
+print.
 """
 from __future__ import annotations
 
@@ -24,6 +26,9 @@ import time
 from collections import defaultdict
 
 import torch
+
+PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
+PEAK_FP32_PER_S = 67e12      # H100 SXM FP32 outside the tensor cores
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:

@@ -17,11 +17,12 @@ the floor input as in the tool and at the real input, where `stage` against
 kernel B says how much of B is reading its pairs. Also at 16x16 tiles (the
 closed loop's tiling, capacity from `suggest_binning_sizes`).
 
-The stripped forms keep the staging kernel B had when they were written:
-each chunk copied synchronously by the block's threads behind a barrier,
-which is what they were built to time. Kernel B now stages chunk c+1 by an
-asynchronous bulk copy while it blends chunk c, so `stage` minus `empty`
-is the cost of that old staging, not a share of the present kernel B.
+The stripped forms stage chunks as kernel B does: two shared-memory
+buffers, the bulk copy of chunk c+1 (cp.async.bulk on an mbarrier) in
+flight while chunk c is consumed, so `stage` minus `empty` is the cost of
+kernel B's present staging on the same inputs. One block walks a tile's
+chunks in order, so the tile with the most chunks sets the kernel's tail:
+`run()` records that count (`max_tile_chunks`) beside the times.
 
     python -m gaussianrpg_tpu_torch.tools.blend_floor [--device cpu] [--small]
 """
@@ -121,6 +122,14 @@ def stripped_forward(variant: str, gdata, chunk_meta, *, n_tiles: int,
     return out, staged
 
 
+def range_counts(start, end) -> dict:
+    """Chunks in the written tiles' ranges, in all and in the longest one
+    (the chain of chunks one block walks in order)."""
+    n = (end - start)[(start >= 0) & (end > start)]
+    return dict(chunks_in_ranges=int(n.sum()),
+                max_tile_chunks=int(n.max()) if n.numel() else 0)
+
+
 def tool_inputs(device: torch.device, small: bool):
     """(inputs per tiling, the tool's three (chunk_meta, gdata) inputs per
     tiling): 64x32 at the tool's capacity, 16x16 at the suggested one."""
@@ -155,7 +164,7 @@ def run(device=None, small: bool = False) -> dict:
         live = (start >= 0) & (end > start)
         rec = dict(capacity=lists.capacity, chunks=lists.capacity // G_CHUNK,
                    tiles=n_tiles, tiles_written=int(live.sum()),
-                   chunks_in_ranges=int((end - start)[live].sum()),
+                   **range_counts(start, end),
                    raw_pairs=int(lists.raw_total), nf=inp.gdata.shape[1])
 
         def fwd(cm, g):
@@ -221,7 +230,8 @@ def main(argv=None) -> dict:
         r = res[tiling]
         print(f"{tiling}: chunks={r['chunks']} tiles={r['tiles']} "
               f"written={r['tiles_written']} "
-              f"chunks_in_ranges={r['chunks_in_ranges']}", flush=True)
+              f"chunks_in_ranges={r['chunks_in_ranges']} "
+              f"max_tile_chunks={r['max_tile_chunks']}", flush=True)
         for label, key in LINES:
             print(f"{tiling} {label:34s} {r[key]:9.4f} ms", flush=True)
     return res

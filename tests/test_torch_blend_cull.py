@@ -268,12 +268,14 @@ def _moment_backward(gdata, chunk_meta, bg, out, dout, *, ntx, nty, tx, ty,
                          * bg[None, :, None], outs[:, 3:]], dim=1)
         bg_dot = g_pix[:, 0] * bg[0] + g_pix[:, 1] * bg[1] \
             + g_pix[:, 2] * bg[2]
-        tot_ebt = torch.sum(tot * g_pix, dim=1) + t_final * bg_dot
+        # the total and the running sum of w*e in float64, as kernel C
+        tot_ebt = torch.sum(tot.double() * g_pix.double(), dim=1) \
+            + t_final.double() * bg_dot.double()
         g_cols = torch.cat([g_pix[:, 0:4], g_pix[:, 5:]], dim=1)
         nt = tb.shape[0]
         t_run = torch.ones((nt, n_pix))
         done = torch.zeros((nt, n_pix), dtype=torch.bool)
-        pref = torch.zeros((nt, n_pix))
+        pref = torch.zeros((nt, n_pix), dtype=torch.float64)
         tile_ox = ((tb % ntx) * tx).to(F32)
         tile_oy = ((tb // ntx) * ty).to(F32)
         for r in range(int(nb[0])):
@@ -284,9 +286,10 @@ def _moment_backward(gdata, chunk_meta, bg, out, dout, *, ntx, nty, tx, ty,
                                     d, s_ch)
             e = torch.bmm(c["feats"], g_pix[ia])
             w = c["w"]
-            p_incl = pref[ia][:, None, :] + torch.cumsum(w * e, dim=1)
-            dl_da = e * c["t_excl"] - (tot_ebt[ia][:, None, :] - p_incl) \
-                / c["one_m"]
+            p_incl = pref[ia][:, None, :] + torch.cumsum((w * e).double(),
+                                                         dim=1)
+            dl_da = e * c["t_excl"] - (tot_ebt[ia][:, None, :] - p_incl
+                                       ).float() / c["one_m"]
             dl_da = torch.where(c["contrib"], dl_da, torch.zeros_like(dl_da))
             q = c["op"] * (c["g"] * dl_da)                   # staged q
             dx, dy = c["dx"], c["dy"]
@@ -360,7 +363,7 @@ def test_moment_form_meets_gradient_tolerance(tile, s_ch):
                            .astype(np.float32))
     stat = dict(stat_width=W, stat_height=H)
     ref = blend.blend_backward_plain(gdata, lists.chunk_meta, bg, out, dout,
-                                     **kw, **stat)
+                                     **kw, **stat, sum_dtype=torch.float64)
     got = _moment_backward(gdata, lists.chunk_meta, bg, out, dout, **kw,
                            **stat)
     groups = {"mean": [0, 1], "conic": [2, 3, 4], "opacity": [5],

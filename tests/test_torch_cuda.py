@@ -64,7 +64,7 @@ def _assert_planes_close(got, ref, s_ch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [1, 2, 3])
-@pytest.mark.parametrize("p", [65536, 131072, 65536 * 9])
+@pytest.mark.parametrize("p", [65536, 131072, 65536 * 9, 2 ** 25])
 def test_fused_cummax_kernel_matches_cummax(cuda, k, p):
     gen = torch.Generator(device=cuda).manual_seed(k * p)
     xs = [torch.randint(-2 ** 31, 2 ** 31 - 1, (p,), dtype=torch.int32,
@@ -75,6 +75,52 @@ def test_fused_cummax_kernel_matches_cummax(cuda, k, p):
     assert scan.launches == n0 + 1
     for a, b in zip(got, scan.fused_cummax_plain(xs)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["marks", "int_min", "decreasing",
+                                     "max_first", "max_last", "random"])
+@pytest.mark.parametrize("p", [65536 * 37, 2 ** 25])
+def test_fused_cummax_kernel_patterns(cuda, pattern, p):
+    """k = 4 arrays of each adversarial pattern (`scan_bench.patterns`),
+    bit for bit, one launch a call."""
+    from gaussianrpg_tpu_torch.tools import scan_bench
+
+    gen = torch.Generator(device=cuda).manual_seed(p)
+    xs = scan_bench.patterns(p, 4, gen, cuda)[pattern]
+    n0 = scan.launches
+    got = scan.fused_cummax(xs)
+    torch.cuda.synchronize()
+    assert scan.launches == n0 + 1
+    for a, b in zip(got, scan.fused_cummax_plain(xs)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_fused_cummax_kernel_repeated_calls_and_streams(cuda):
+    """Calls back to back on other data (the scratch the caching allocator
+    hands out again holds the last call's status words until the memset),
+    then a call on a side stream, each bit for bit and one launch."""
+    p = 65536 * 40
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    calls = []
+    for lo in (0, -2 ** 31, 5):
+        xs = [torch.randint(lo, 2 ** 31 - 1, (p,), dtype=torch.int32,
+                            generator=gen, device=cuda) for _ in range(2)]
+        n0 = scan.launches
+        calls.append((xs, scan.fused_cummax(xs)))
+        assert scan.launches == n0 + 1
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        xs = [torch.flip(calls[0][0][0], [0]).contiguous()]
+        n0 = scan.launches
+        calls.append((xs, scan.fused_cummax(xs)))
+        assert scan.launches == n0 + 1
+    torch.cuda.synchronize()
+    for xs, got in calls:
+        for a, b in zip(got, scan.fused_cummax_plain(xs)):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -336,11 +382,12 @@ def test_stripped_blend_kernel_matches_plain(cuda, variant, tx, ty, tight):
     the camera axis, so the right-hand tiles have no chunks); `tight` sets
     the capacity to the padded pair count, so that a tile's last chunk is
     the last chunk of the capacity. Planes and the per-tile sum over every
-    staged chunk both."""
+    staged chunk both. Some tiles have a range of one chunk, some of three
+    or more (the two staging buffers' barrier parity wraps)."""
     from gaussianrpg_tpu_torch.tools import blend_floor as bf
 
     W, H = 160, 96
-    cam, means, t = _scene(300, W, H, 9, cuda)
+    cam, means, t = _scene(3000, W, H, 9, cuda)
     means[:, 0] = -means[:, 0].abs() - 1.0
     fs = primitive_fields(means, t["opacities"], camera=cam,
                           colors=t["colors"], scales=t["scales"],
@@ -352,6 +399,9 @@ def test_stripped_blend_kernel_matches_plain(cuda, variant, tx, ty, tight):
         assert int(lists.chunk_meta[-1]) >> 25 & 1
     assert not bool(lists.overflowed)
     n_tiles, n_pix = lists.n_tiles_x * lists.n_tiles_y, tx * ty
+    start, end = blend.tile_chunk_ranges(lists.chunk_meta, n_tiles)
+    lengths = (end - start)[(start >= 0) & (end > start)]
+    assert int(lengths.min()) == 1 and int(lengths.max()) >= 3
     for cm in (lists.chunk_meta, lists.chunk_meta & ~bf.VALID_BIT):
         n0 = bf.launches
         got, staged = bf.stripped_forward(variant, gdata, cm,
