@@ -69,6 +69,22 @@ Phases, one JSON line each (any failure ends the run with exit code 1):
           mean-column and opacity errors printed beside the 5e-5 limit
           (the composite held to it on the first frame and seed, as in
           phase kernel, and printed for the rest);
+  perception  YOLOv5 and the fused render -> letterbox -> YOLOv5s -> top-K
+          step (`loop_bench_gpu.py`'s setup: the frozen scene at 1066x1600,
+          64x32 tiles, YOLOv5s seed 0 letterboxed to 384x640): (a) the
+          graph on the card against the CPU path on the first frame,
+          within 1e-4 + 1e-4 x each column group's max, and its device ms
+          (median of single calls) beside its FP32 bound; (b) the fused
+          step against the unfused detector on the card: the same
+          detections, those within twice (a)'s score error of the
+          threshold counted; (c) the fused closed loop
+          (`loop_bench_gpu.measure`, 10 s of simulation): verdict success,
+          frame and device times, launches of kernels A and B counted
+          around the loop alone (not its warm-up frames or timing runs),
+          the fused step's kernels from a profiler trace; (d) a braking
+          event through the fused path at 1066x1600 with a red-blob
+          predictor: AEB brakes, no collision, and the control run with
+          empty perception collides;
   train   the trainer (`apps.train.run_training`) on the synthetic scene
           at 600k background Gaussians + 2 actors, 1066x1600, 16x16: 60
           steps with one densify-and-prune event; the L1 of the trainer's
@@ -79,10 +95,10 @@ Phases, one JSON line each (any failure ends the run with exit code 1):
           gaussianrpg_tpu_torch.apps.train --synthetic --iterations 30`
           in a subprocess.
 The line before the last is the kernel table ({"kernels": [...]}: kernels
-A, B and C with their launches summed over the closed loop, train_frame
-and train runs, B's and C's times from the loop frame, A's from the
-trainer's capacity, their errors the largest over every shape checked;
-the five tool kernels with their
+A, B and C with their launches summed over the closed loop, perception
+(c)'s and (d)'s loops, train_frame and train runs, B's and C's times from the loop
+frame, A's from the trainer's capacity, their errors the largest over
+every shape checked; the five tool kernels with their
 launches in the tools' runs, each counted from zero); the card's name
 and power limit are printed first and again before it; the last line is
 the device verdict.
@@ -140,16 +156,6 @@ def bound(bytes_moved, ops):
     t_ops = ops / PEAK_FP32_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
             "operations")
-
-
-def smi_line():
-    try:
-        return subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60).stdout.strip().splitlines()[0]
-    except (OSError, IndexError, subprocess.SubprocessError):
-        return "nvidia-smi unavailable"
 
 
 def compare_planes(torch, kern, plain, written, s_ch):
@@ -1216,6 +1222,179 @@ def phase_loop(torch):
     return launches, fwd, bwd, cummax
 
 
+YOLO_RTOL = YOLO_ATOL = 1e-4   # YOLO card vs CPU, of each column group's max
+BRAKE_KW = dict(brake_distance=15.0, collision_threshold=5.0,
+                simulation_time=3.5, cam_height=1.3)
+
+
+def pred_errors(got, ref):
+    """Per column group of decoded predictions [A, 85] (xywh in input
+    pixels; obj and class scores): (max abs error, group max)."""
+    return {name: (float((got[:, cols] - ref[:, cols]).abs().max()),
+                   float(ref[:, cols].abs().max()))
+            for name, cols in (("xywh", slice(0, 4)),
+                               ("scores", slice(4, None)))}
+
+
+def compare_detections(a, b, thr, conf_tol, box_tol):
+    """Two [M, 6] detection lists (xyxy, conf, cls; conf-sorted) of the
+    same frame. Detections whose conf lies within conf_tol of the
+    threshold may differ and are counted; the rest must agree in order:
+    class, conf within conf_tol, box corners within box_tol px."""
+    import numpy as np
+
+    near = int(np.sum(np.abs(a[:, 4] - thr) <= conf_tol)
+               + np.sum(np.abs(b[:, 4] - thr) <= conf_tol))
+    a, b = a[a[:, 4] > thr + conf_tol], b[b[:, 4] > thr + conf_tol]
+    same = (a.shape == b.shape and bool(np.all(a[:, 5] == b[:, 5]))
+            and bool(np.all(np.abs(a[:, 4] - b[:, 4]) <= conf_tol))
+            and bool(np.all(np.abs(a[:, :4] - b[:, :4]) <= box_tol)))
+    box_err = float(np.abs(a[:, :4] - b[:, :4]).max()) if (
+        a.shape == b.shape and a.shape[0]) else 0.0
+    return dict(n=(a.shape[0], b.shape[0]), near_threshold=near,
+                box_max_abs_err=box_err, same=same)
+
+
+def phase_perception(torch):
+    """YOLOv5 perception and the fused render -> letterbox -> YOLOv5s ->
+    top-K step on the card (`loop_bench_gpu.py`'s setup: the frozen scene
+    at 1066x1600, 64x32 tiles, YOLOv5s seed 0 at 384x640):
+      (a) YOLOv5s on the card against the port's CPU path on the first
+          frame letterboxed to [1, 384, 640, 3]: the decoded [15120, 85]
+          predictions within YOLO_RTOL / YOLO_ATOL of each column group's
+          max; the forward's device ms (median of single calls) beside
+          its FP32 bound;
+      (b) the fused step against the unfused detector (host letterbox,
+          NMS over the full prediction) on that frame, both on the card, at
+          the threshold halfway between the 64th and 65th candidates'
+          conf: the same detections, apart from those whose conf lies
+          within twice (a)'s score error of it (counted, printed);
+      (c) `loop_bench_gpu.measure`: the closed loop for 10 s of
+          simulation, verdict success, its frame and device times, and
+          launches of kernels A and B in the loop alone (counted around
+          `run_closed_loop`: not its warm-up frames or timing runs); the
+          kernels of the fused step by device time (a profiler trace,
+          `_timing.kernel_trace`);
+      (d) a braking event through the fused path (tests/
+          test_torch_perception.py's, at 1066x1600 letterboxed to
+          384x640): AEB brakes, no collision; the control run with empty
+          perception collides. Launches counted around the braking run.
+    Returns the launches of (c)'s and (d)'s loops."""
+    import numpy as np
+
+    import loop_bench_gpu as lb
+    from gaussianrpg_tpu_torch.sim import yolo
+    from gaussianrpg_tpu_torch.sim.detector import (VEHICLE_CLASSES,
+                                                    normalized_boxes)
+    from gaussianrpg_tpu_torch.sim.loop import run_closed_loop
+    from gaussianrpg_tpu_torch.sim.pipeline import (finish_detections,
+                                                    letterbox_device,
+                                                    make_fused_step)
+    from gaussianrpg_tpu_torch.tools._timing import (cycling,
+                                                     device_ms_each,
+                                                     kernel_trace)
+    from gaussianrpg_tpu_torch.utils.synthetic import (red_blob_predict,
+                                                       red_lead_setup)
+
+    t0 = time.time()
+    s = lb.setup(10.0, seed=0, device="cuda")
+    cam, args, spec, params = s["cams"][0], s["args"], s["spec"], s["params"]
+    frame = s["render_rgb"](cam, *args)
+    boxed = letterbox_device(frame, lb.SIZE)[0][None].contiguous()
+    pred = yolo.forward(spec, params, boxed)[0]
+    cpu_model = yolo.init_params(spec, seed=0, device="cpu")
+    ref = yolo.forward(spec, cpu_model, boxed.cpu())[0]
+    errs = pred_errors(pred.cpu(), ref)
+    ok = all(e <= YOLO_ATOL + YOLO_RTOL * m for e, m in errs.values())
+    ms = device_ms_each(lambda: yolo.forward(spec, params, boxed))
+    flops = lb.yolo_flops(spec, *lb.SIZE)
+    emit(dict(phase="perception", check="yolo card vs cpu",
+              input=list(boxed.shape), pred=list(pred.shape),
+              max_abs_err={k: e for k, (e, _) in errs.items()},
+              group_max={k: m for k, (_, m) in errs.items()},
+              limit=f"atol {YOLO_ATOL} + rtol {YOLO_RTOL} x group max",
+              yolo_ms=ms, gflop=flops / 1e9,
+              bound_ms=bound(0, flops)[0], ok=ok))
+    check(ok, "perception", "YOLOv5s on the card disagrees with the CPU")
+
+    cand = s["step"](cam, *args)
+    conf = np.sort(cand[:, 4])[::-1]
+    thr = float(conf[63] + conf[64]) / 2
+    conf_tol = 2 * errs["scores"][0]
+    box_tol = 1e-3 + errs["xywh"][0] / s["gain"]
+    fused = finish_detections(cand, s["gain"], s["pad"], (s["H"], s["W"]),
+                              conf_thres=thr)
+    unfused = yolo.YoloDetector(
+        spec=spec, params=params, size=lb.SIZE, conf_thres=thr,
+        classes=VEHICLE_CLASSES, device="cuda")(
+            frame.cpu().numpy().transpose(1, 2, 0))
+    cmp = compare_detections(fused, unfused, thr, conf_tol, box_tol)
+    ok = cmp["same"] and cmp["n"][0] > 0
+    emit(dict(phase="perception", check="fused vs unfused", conf_thres=thr,
+              k=lb.K, conf_tol=conf_tol, box_tol_px=box_tol, **cmp, ok=ok))
+    check(ok, "perception", "fused and unfused detections disagree")
+    del pred, ref, cpu_model, boxed
+
+    rec, res = lb.measure(s, 10.0)
+    launches_c = rec["launches"]      # counted around the loop alone
+    trace = kernel_trace(cycling(s["step"].device_step,
+                                 [(c, *args) for c in s["cams"][1:6]]))
+    ok = (res.verdict == "success" and res.frames_rendered > 5
+          and launches_c["blend_fwd"] > 0 and launches_c["cummax"] > 0)
+    emit(dict(phase="perception", check="fused closed loop",
+              verdict=res.verdict, frames=res.frames_rendered,
+              median_frame_ms=rec["sequential_frame_ms"],
+              frame_ms_p10_p90_max=rec["frame_ms_p10_p90_max"],
+              render_ms=rec["render_ms"], yolo_ms=rec["yolo_ms"],
+              fused_device_ms=rec["fused_device_ms"],
+              host_nms_aeb_ms=rec["host_nms_aeb_ms"],
+              loop_hz=rec["loop_hz"], launches=launches_c,
+              fused_step_kernels=dict(
+                  launches=sum(k["launches_per_call"] for k in trace),
+                  ms=sum(k["ms_per_call"] for k in trace),
+                  top=[dict(name=k["name"][:90],
+                            launches=k["launches_per_call"],
+                            ms=k["ms_per_call"]) for k in trace[:12]]),
+              ok=ok))
+    check(ok, "perception", "fused closed loop failed")
+    del s
+    torch.cuda.empty_cache()
+
+    H, W = 1066, 1600
+    tape, render_rgb, cam0, gt, v2c = red_lead_setup(
+        W, H, device="cuda")
+    step, gain, pad = make_fused_step(
+        render_rgb, None, None, (H, W), size=lb.SIZE, k=8,
+        classes=VEHICLE_CLASSES, predict_fn=red_blob_predict)
+
+    def perceive(c):
+        det = finish_detections(step(c), gain, pad, (H, W), conf_thres=0.4)
+        return normalized_boxes(det, H, W)
+
+    reset_counts()
+    res = run_closed_loop(tape, None, None, cam0, gt, perceive_fn=perceive,
+                          ranger_extrinsic=v2c, **BRAKE_KW)
+    launches_d = launch_counts()
+    control = run_closed_loop(tape, None, None, cam0, gt,
+                              perceive_fn=lambda c: [],
+                              ranger_extrinsic=v2c, **BRAKE_KW)
+    braked = any(e["brake"] != 0.0 for e in res.log)
+    ok = (braked and any(e["n_det"] > 0 for e in res.log)
+          and res.verdict == "success" and res.min_gt_distance > 5.0
+          and res.log[-1]["velocity"] < 0.5
+          and control.verdict == "collision")
+    emit(dict(phase="perception", check="fused braking event",
+              size=f"{W}x{H}", letterbox=list(lb.SIZE), verdict=res.verdict,
+              frames=res.frames_rendered, aeb_braked=braked,
+              min_gt_distance=res.min_gt_distance,
+              final_velocity=res.log[-1]["velocity"],
+              median_frame_ms=statistics.median(res.frame_seconds) * 1e3,
+              control_verdict=control.verdict, launches=launches_d,
+              seconds=time.time() - t0, ok=ok))
+    check(ok, "perception", "fused braking event failed")
+    return {k: launches_c[k] + launches_d[k] for k in launches_c}
+
+
 TRAIN_STEPS = 60
 DENSIFY_AT = 10      # the trainer's one densify-and-prune event
 EVAL_EVERY = 10
@@ -1327,6 +1506,7 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         from gaussianrpg_tpu_torch.ops import cuda_build
+        from gaussianrpg_tpu_torch.tools._timing import smi_line
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
@@ -1355,6 +1535,7 @@ def main():
         torch.cuda.empty_cache()
         loop_launches, b, d, a_loop = phase_loop(torch)
         runs.append(loop_launches)
+        runs.append(phase_perception(torch))
         train_launches, c = phase_train(torch)
         runs.append(train_launches)
     except PhaseFailed as e:

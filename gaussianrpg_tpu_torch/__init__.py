@@ -10,9 +10,11 @@ each counterpart is easy to find:
              (ops/scan.py, ops/blend.py; CUDA sources in csrc/)
   models/    Gaussian parameter containers + composite scene graph
   render/    cameras + composite renderer
-  sim/       closed-loop simulator: tape, dynamics, AEB, detector
+  sim/       closed-loop simulator: tape, dynamics, AEB, detectors,
+             YOLOv5 (sim/yolo.py) and the fused render -> letterbox ->
+             YOLOv5 -> top-K step (sim/pipeline.py)
   utils/     device selection, synthetic scenes
-  apps/      CLI entry points (simulate)
+  apps/      CLI entry points (simulate, train, profile_trace)
 
 Entry points run on CUDA unless the caller passes `device="cpu"`; on the
 CPU every kernel wrapper uses its plain PyTorch version.

@@ -12,73 +12,29 @@ line as the JAX app:
 from __future__ import annotations
 
 import json
-import math
-
-import numpy as np
-import torch
 
 
 def _synthetic_setup(width=512, height=320, ego_speed=8.0,
                      lead_world_z=30.0, n_frames=40, n_background=20000,
                      bkgd_capacity=32768, device=None):
     """(tape, render_fn, detector, camera_template, gt_tracklets, v2c) for
-    the synthetic scenario. The pair capacity is probed from the tape's
-    cameras and grown on overflow."""
-    from ..render.camera import make_camera
-    from ..render.renderer import (RenderOptions, probe_scene_capacity,
-                                   render_scene, render_until_fit)
+    the synthetic scenario, perceived by the box-projection detector."""
     from ..sim.detector import BoxProjectionDetector
-    from ..sim.tape import build_tape_from_cameras
     from ..utils.device import resolve_device
-    from ..utils.synthetic import make_scene
+    from ..utils.synthetic import fitting_renderer, lead_vehicle_scenario
 
     dev = resolve_device(device)
-    models, meta, arrays = make_scene(
-        n_background=n_background, bkgd_capacity=bkgd_capacity, n_actors=1,
-        actor_capacity=2048, n_frames=n_frames, opt_track=False, device=dev)
-    duration = (n_frames - 1) / 10.0
-    ts = np.arange(n_frames) / 10.0
-    trans = np.zeros((n_frames, 1, 3), np.float32)
-    trans[:, 0, 1] = 0.5
-    trans[:, 0, 2] = lead_world_z - ego_speed * ts
-    models = models.replace(actor_pose=models.actor_pose.replace(
-        input_trans=torch.as_tensor(trans, device=dev),
-        timestamps=torch.as_tensor(ts.astype(np.float32), device=dev)))
-    arrays = arrays.replace(actor_start_ts=torch.zeros(1, device=dev),
-                            actor_end_ts=torch.full((1,), duration,
-                                                    device=dev))
-
-    fovx = math.radians(60.0)
-    fovy = 2 * math.atan(math.tan(fovx / 2) * height / width)
-    cams = []
-    for i in range(n_frames):
-        c2w = np.eye(4)
-        c2w[2, 3] = ego_speed * ts[i]
-        w2c = np.linalg.inv(c2w)
-        cams.append(make_camera(
-            R=w2c[:3, :3].T, T=w2c[:3, 3], K=None, width=width,
-            height=height, fovx=fovx, fovy=fovy,
-            ego_pose=c2w.astype(np.float32), timestamp=float(ts[i]),
-            frame=i, image_id=i, device=dev))
-    tape_frames = build_tape_from_cameras(cams, upsample_rate=5)
-    tape = {"frames": tape_frames, "image_freq": 10, "dynamic_freq": 50}
-
-    state = {"options": probe_scene_capacity(
-        models, meta, arrays, cams, active_sh_degree=1,
-        options=RenderOptions(), slack=1.3)}
+    models, meta, arrays, cams, tape, gt_tracklets, v2c = (
+        lead_vehicle_scenario(width, height, ego_speed, lead_world_z,
+                              n_frames, n_background, bkgd_capacity, 2048,
+                              dev))
+    render = fitting_renderer(models, meta, arrays, cams, 1, dev)
 
     def render_fn(cam):
-        res, state["options"] = render_until_fit(
-            lambda o: render_scene(models, meta, arrays, cam,
-                                   active_sh_degree=1, options=o,
-                                   device=dev), state["options"])
-        return res.rgb.cpu().numpy()
+        return render(cam).rgb.cpu().numpy()
 
     detector = BoxProjectionDetector(arrays=arrays,
                                      actor_pose=models.actor_pose)
-    gt_tracklets = {i: (lead_world_z, 0.0, 0.0) for i in range(len(cams))}
-    v2c = np.array([[0., -1., 0., 0.], [0., 0., -1., 0.],
-                    [1., 0., 0., 0.], [0., 0., 0., 1.]])
     return tape, render_fn, detector, cams[0], gt_tracklets, v2c
 
 

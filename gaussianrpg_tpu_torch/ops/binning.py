@@ -82,10 +82,13 @@ def _cumsum(x: torch.Tensor) -> torch.Tensor:
 
 
 def _scatter_max(size: int, idx: torch.Tensor, vals: torch.Tensor):
-    """zeros(size).at[idx].max(vals, mode="drop")."""
-    out = torch.zeros(size, dtype=I32, device=vals.device)
+    """zeros(size).at[idx].max(vals, mode="drop"). Dropped entries land in
+    an extra slot that is cut off: selecting the kept ones by a boolean
+    mask would wait for the card to count them."""
+    out = torch.zeros(size + 1, dtype=I32, device=vals.device)
     keep = (idx >= 0) & (idx < size)
-    return out.scatter_reduce_(0, idx[keep].long(), vals[keep], "amax")
+    idx = torch.where(keep, idx, torch.full_like(idx, size)).long()
+    return out.scatter_reduce_(0, idx, vals, "amax")[:size]
 
 
 def _fill(marks: torch.Tensor) -> torch.Tensor:
@@ -144,7 +147,9 @@ def _build_pair_lists_emit(x0, y0, rw, area, offs, raw_total, capacity,
     p_max = capacity
     g32 = torch.arange(n, dtype=I32, device=dev)
     gb = _EMIT_GB
-    sent = torch.tensor(_EMIT_SENT, dtype=I32, device=dev)
+    # torch.full, not torch.tensor: a python value copied to the card
+    # would wait for the stream (a host sync inside the frame)
+    sent = torch.full((), _EMIT_SENT, dtype=I32, device=dev)
 
     base0 = (y0 * ntx + x0).to(I32)
     rw_f = torch.clamp(rw, min=1).to(torch.float32)
@@ -257,7 +262,7 @@ def _build_pair_lists_emit(x0, y0, rw, area, offs, raw_total, capacity,
         pair_tile = torch.where(real, sk >> gb, torch.full_like(sk, -1))
 
     padded_total = torch.where(
-        tail_overflow, torch.tensor(capacity + align, dtype=I32, device=dev),
+        tail_overflow, torch.full_like(padded_total, capacity + align),
         padded_total)
     return PairLists(
         pair_src=pair_src, pair_valid=pair_valid, tile_nonempty=tile_written,
@@ -346,9 +351,10 @@ def build_pair_lists(
     tile = torch.where(pair_ok, tile, torch.full_like(tile, n_tiles))
 
     # per-tile counts (exact integer histogram; invalid pairs land in the
-    # extra bin n_tiles)
-    counts = torch.bincount(tile.long(), minlength=n_tiles + 1)[:n_tiles]
-    counts = counts.to(I32)
+    # extra bin n_tiles). Not torch.bincount: on the card it reads the
+    # largest index back to size its output, a host sync inside the frame
+    counts = torch.zeros(n_tiles + 1, dtype=I32, device=dev).index_add_(
+        0, tile.long(), torch.ones_like(tile))[:n_tiles]
     pcounts, pstarts, padded_total, chunk_meta, tile_written = \
         _chunk_and_pad(counts, align, capacity, n_tiles, max_chunks)
 

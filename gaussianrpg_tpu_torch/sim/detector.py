@@ -1,14 +1,18 @@
-"""Perception for the closed loop: the box-projection detector.
-
-Counterpart of `gaussianrpg_tpu/sim/detector.py` (`BoxProjectionDetector`
-only; the YOLOv5 detectors come with the perception slice). It projects
-the tracked actors' 3D boxes into the camera and emits YOLO-style
+"""Perception for the closed loop: detectors that emit YOLO-style
 normalized (cx, cy, w, h) boxes; ranging stays in sim/nodes.py.
+
+Counterpart of `gaussianrpg_tpu/sim/detector.py`:
+  * BoxProjectionDetector projects the tracked actors' 3D boxes into the
+    camera (ground-truth geometry, optional noise);
+  * YoloDetector runs the YOLOv5 graph of sim/yolo.py (the JAX package's
+    `JaxYoloDetector`), randomly initialized or from a checkpoint.
+The JAX package's `TorchHubYoloDetector` needs an external YOLOv5 checkout
+and weights and has no counterpart here.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -70,3 +74,43 @@ class BoxProjectionDetector:
                 (u0 + u1) / 2 / W, (v0 + v1) / 2 / H,
                 (u1 - u0) / W, (v1 - v0) / H]))
         return bboxes
+
+
+VEHICLE_CLASSES = (0, 1, 2, 3, 5, 7)  # COCO person, bicycle, car, ..., truck
+
+
+@dataclass
+class YoloDetector:
+    """YOLOv5 perception (sim/yolo.py) on `device` (CUDA unless given),
+    from `weights_path` (a YOLOv5 checkpoint) or randomly initialized."""
+
+    weights_path: Optional[str] = None
+    size: tuple = (384, 640)
+    conf_thres: float = 0.25
+    iou_thres: float = 0.45
+    device: Optional[str] = None
+    _det: Optional[object] = None
+
+    def _ensure(self):
+        if self._det is None:
+            from . import yolo
+            kw = dict(size=self.size, conf_thres=self.conf_thres,
+                      iou_thres=self.iou_thres, classes=VEHICLE_CLASSES,
+                      device=self.device)
+            self._det = (yolo.YoloDetector.from_checkpoint(
+                self.weights_path, **kw) if self.weights_path
+                else yolo.YoloDetector(**kw))
+
+    def detect(self, image_chw, camera) -> List[np.ndarray]:
+        self._ensure()
+        H, W = image_chw.shape[1:]
+        det = self._det(np.clip(image_chw, 0, 1).transpose(1, 2, 0))
+        return normalized_boxes(det, H, W)
+
+
+def normalized_boxes(det: np.ndarray, H: int, W: int) -> List[np.ndarray]:
+    """[M, 6] detections (xyxy in image pixels, conf, cls) -> the loop's
+    normalized (cx, cy, w, h) boxes."""
+    return [np.array([(x0 + x1) / 2 / W, (y0 + y1) / 2 / H,
+                      (x1 - x0) / W, (y1 - y0) / H])
+            for x0, y0, x1, y1, conf, cls in det]

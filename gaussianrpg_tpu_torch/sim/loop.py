@@ -1,13 +1,15 @@
 """Headless closed-loop simulator: tape -> render -> perception -> AEB ->
 car dynamics, at 50 Hz dynamics / 10 Hz imaging.
 
-Counterpart of `gaussianrpg_tpu/sim/loop.py` (render_fn + detector path).
+Counterpart of `gaussianrpg_tpu/sim/loop.py`: the render_fn + detector
+path, and the fused path where one `perceive_fn` renders and detects
+(sim/pipeline.py).
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Callable, List
+from typing import Callable, List, Optional
 
 import numpy as np
 
@@ -30,7 +32,7 @@ class LoopResult:
 
 def run_closed_loop(
     tape: dict,
-    render_fn: Callable[[Camera], np.ndarray],
+    render_fn: Optional[Callable[[Camera], np.ndarray]],
     detector,
     camera_template: Camera,
     gt_tracklets: dict,
@@ -42,10 +44,18 @@ def run_closed_loop(
     cam_height: float = 2.115,
     ranger_extrinsic: np.ndarray | None = None,
     max_ticks: int | None = None,
+    perceive_fn: Optional[Callable[[Camera], List[np.ndarray]]] = None,
 ) -> LoopResult:
     """Run the loop until a verdict or max_ticks. render_fn: Camera ->
     [3, H, W] host image (it must finish the frame before returning, so
-    `frame_seconds` holds whole-frame host times)."""
+    `frame_seconds` holds whole-frame host times); detector:
+    sim.detector's protocol.
+
+    perceive_fn (optional): Camera -> normalized (cx, cy, w, h) boxes,
+    replacing render_fn + detector.detect: the fused inline-perception
+    path (sim/pipeline.py). render_fn and detector may then be None, and
+    `frame_seconds` times perceive_fn (render, perception and the copy of
+    the candidates to the host)."""
     dyn = CarDynamics(tape=tape)
     sync_iters = int(round(tape.get("dynamic_freq", 50)
                            / tape.get("image_freq", 10)))
@@ -83,9 +93,13 @@ def run_closed_loop(
             cam = _camera_from_pose(camera_template, pose, idx,
                                     dyn.timestamp)
             t0 = time.perf_counter()
-            img = np.asarray(render_fn(cam))
-            frame_seconds.append(time.perf_counter() - t0)
-            bboxes = detector.detect(img, cam)
+            if perceive_fn is not None:
+                bboxes = perceive_fn(cam)
+                frame_seconds.append(time.perf_counter() - t0)
+            else:
+                img = np.asarray(render_fn(cam))
+                frame_seconds.append(time.perf_counter() - t0)
+                bboxes = detector.detect(img, cam)
             objects = [ranger.distance(b) for b in bboxes]
             objects = [(rng_, lat) for rng_, lat in objects if rng_ > 0]
             brake = aeb.on_objects(objects)

@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import json
 import os
+import statistics
+import subprocess
 import tempfile
 import time
 from collections import defaultdict
@@ -29,6 +31,19 @@ import torch
 
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FP32_PER_S = 67e12      # H100 SXM FP32 outside the tensor cores
+
+
+def smi_line() -> str:
+    """The card's name and power limit, as `nvidia-smi --query-gpu=
+    name,power.limit --format=csv,noheader` prints them: the label every
+    device number is written down with."""
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip().splitlines()[0]
+    except (OSError, IndexError, subprocess.SubprocessError):
+        return "nvidia-smi unavailable"
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -92,6 +107,16 @@ def device_ms(fn, reps: int, warmup: int = 1) -> float:
         spin_ms *= 4
         if not spun_out or spin_ms > 1000.0:
             return t0.elapsed_time(t1) / reps
+
+
+def device_ms_each(fn, n: int = 10) -> float:
+    """Median of `n` single-call `device_ms` readings, for a call that
+    launches hundreds of kernels (the fused perception step: ~870). The
+    CUDA runtime holds on the order of a thousand pending launches; queued
+    behind the spin, more than that block the host until the spin ends,
+    and the device then runs at the host's pace, so `device_ms` with
+    several repetitions of such a call reads host time."""
+    return statistics.median(device_ms(fn, reps=1) for _ in range(n))
 
 
 def time_ms(fn, device: torch.device, reps: int, warmup: int = 1) -> float:

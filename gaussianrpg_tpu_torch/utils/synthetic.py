@@ -1,5 +1,7 @@
 """Synthetic street scenes (background + box actors driving forward + sky)
-for tests, the closed-loop demo and the chip smoke run.
+for tests, the closed-loop demo and the chip smoke run; and the test scene
+of the fused braking event (`red_lead_setup`) with its stand-in predictor
+(`red_blob_predict`).
 
 Counterpart of `gaussianrpg_tpu/utils/synthetic.py`: the same seeded numpy
 draws, so one seed gives the same scene in both packages.
@@ -174,3 +176,127 @@ def make_cameras(n_frames: int = 10, width: int = 128, height: int = 96,
             ego_pose=c2w.astype(np.float32), timestamp=float(t), frame=f,
             image_id=f, device=device))
     return cams
+
+
+def lead_vehicle_scenario(width, height, ego_speed, lead_world_z,
+                          n_frames, n_background, bkgd_capacity,
+                          actor_capacity, device):
+    """The closed-loop scenario (apps/simulate.py): a street scene whose one actor is a lead
+    vehicle stopped ahead of the ego, which drives forward at ego_speed.
+    Returns (models, meta, arrays, cameras, tape, gt_tracklets, v2c)."""
+    from ..sim.tape import build_tape_from_cameras
+
+    dev = resolve_device(device)
+    models, meta, arrays = make_scene(
+        n_background=n_background, bkgd_capacity=bkgd_capacity, n_actors=1,
+        actor_capacity=actor_capacity, n_frames=n_frames, opt_track=False,
+        device=dev)
+    duration = (n_frames - 1) / 10.0
+    ts = np.arange(n_frames) / 10.0
+    trans = np.zeros((n_frames, 1, 3), np.float32)
+    trans[:, 0, 1] = 0.5
+    trans[:, 0, 2] = lead_world_z - ego_speed * ts
+    models = models.replace(actor_pose=models.actor_pose.replace(
+        input_trans=torch.as_tensor(trans, device=dev),
+        timestamps=torch.as_tensor(ts.astype(np.float32), device=dev)))
+    arrays = arrays.replace(actor_start_ts=torch.zeros(1, device=dev),
+                            actor_end_ts=torch.full((1,), duration,
+                                                    device=dev))
+
+    fovx = math.radians(60.0)
+    fovy = 2 * math.atan(math.tan(fovx / 2) * height / width)
+    cams = []
+    for i in range(n_frames):
+        c2w = np.eye(4)
+        c2w[2, 3] = ego_speed * ts[i]
+        w2c = np.linalg.inv(c2w)
+        cams.append(make_camera(
+            R=w2c[:3, :3].T, T=w2c[:3, 3], K=None, width=width,
+            height=height, fovx=fovx, fovy=fovy,
+            ego_pose=c2w.astype(np.float32), timestamp=float(ts[i]),
+            frame=i, image_id=i, device=dev))
+    tape_frames = build_tape_from_cameras(cams, upsample_rate=5)
+    tape = {"frames": tape_frames, "image_freq": 10, "dynamic_freq": 50}
+    gt_tracklets = {i: (lead_world_z, 0.0, 0.0) for i in range(len(cams))}
+    # synthetic vehicle frame: forward = +z_cam, left = -x_cam, up = -y_cam
+    v2c = np.array([[0., -1., 0., 0.], [0., 0., -1., 0.],
+                    [1., 0., 0., 0.], [0., 0., 0., 1.]])
+    return models, meta, arrays, cams, tape, gt_tracklets, v2c
+
+
+def fitting_renderer(models, meta, arrays, cams, active_sh_degree, dev):
+    """render(cam) -> RenderResult, with the pair capacity probed from the
+    tape's cameras and grown on overflow."""
+    from ..render.renderer import (RenderOptions, probe_scene_capacity,
+                                   render_scene, render_until_fit)
+
+    state = {"options": probe_scene_capacity(
+        models, meta, arrays, cams, active_sh_degree=active_sh_degree,
+        options=RenderOptions(), slack=1.3)}
+
+    def render(cam):
+        res, state["options"] = render_until_fit(
+            lambda o: render_scene(models, meta, arrays, cam,
+                                   active_sh_degree=active_sh_degree,
+                                   options=o, device=dev), state["options"])
+        return res
+
+    return render
+
+
+RED_DC = 0.5 / 0.28209479177387814   # SH DC giving colour 1.0 (C0*dc+0.5)
+
+
+def red_lead_setup(width=128, height=80, device=None):
+    """(tape, render_rgb, camera_template, gt_tracklets, v2c): the
+    scenario of the JAX package's fused braking test (tests/test_sim.py:
+    `test_braking_event_through_fused_pipeline`) with the scene repainted
+    so that the lead vehicle is unambiguous: a near-transparent grey
+    background (opacity logit -5) and a pure-red actor. render_rgb(cam)
+    returns the [3, H, W] image on the device, for the fused pipeline."""
+    dev = resolve_device(device)
+    models, meta, arrays, cams, tape, gt, v2c = lead_vehicle_scenario(
+        width, height, 8.0, 30.0, 40, 8000, 16384, 1024, dev)
+    bk, ac = models.background, models.actors
+    red = torch.tensor([RED_DC, -RED_DC, -RED_DC], device=dev)
+    models = models.replace(
+        background=bk.replace(
+            features_dc=torch.zeros_like(bk.features_dc),
+            features_rest=torch.zeros_like(bk.features_rest),
+            opacity=torch.full_like(bk.opacity, -5.0)),
+        actors=ac.replace(
+            features_dc=red.expand(ac.features_dc.shape).contiguous(),
+            features_rest=torch.zeros_like(ac.features_rest)))
+    render = fitting_renderer(models, meta, arrays, cams, 0, dev)
+
+    def render_rgb(cam):
+        return render(cam).rgb
+
+    return tape, render_rgb, cams[0], gt, v2c
+
+
+def red_blob_predict(spec, params, imgs, n_anchor: int = 8):
+    """A deterministic stand-in for the YOLO graph at the fused pipeline's
+    `predict_fn` contract point: the box of the red-dominant pixels of the
+    letterboxed frame imgs [1, h, w, 3], as one confident 'car' row of an
+    [1, n_anchor, 85] prediction (zeros elsewhere)."""
+    img = imgs[0]
+    h, w = img.shape[0], img.shape[1]
+    r, g, b = img[..., 0], img[..., 1], img[..., 2]
+    mask = (r > 0.55) & (r - torch.maximum(g, b) > 0.25)
+    ys = torch.arange(h, dtype=torch.float32, device=img.device)[:, None]
+    xs = torch.arange(w, dtype=torch.float32, device=img.device)[None, :]
+    big = torch.tensor(1e9, device=img.device)
+    x0 = torch.where(mask, xs, big).amin()
+    x1 = torch.where(mask, xs, -big).amax()
+    y0 = torch.where(mask, ys, big).amin()
+    y1 = torch.where(mask, ys, -big).amax()
+    ok = ((mask.sum() >= 3) & (x1 > x0) & (y1 > y0)).float()
+    row = torch.zeros(85, device=img.device)
+    row[:4] = torch.stack([(x0 + x1) / 2, (y0 + y1) / 2, (x1 - x0) + 1.0,
+                           (y1 - y0) + 1.0]) * ok
+    row[4] = ok                                         # objectness
+    row[5 + 2] = 1.0                                    # class 2 = car
+    pred = torch.zeros((n_anchor, 85), device=img.device)
+    pred[0] = row
+    return pred[None]

@@ -2,7 +2,8 @@
 versions (kernel A: fused cummax, kernel B: blend forward, kernel C: blend
 backward, and the kernels of the tools in `gaussianrpg_tpu_torch/tools`),
 plus one frame and its gradients through `rasterize` on the card against
-the CPU path.
+the CPU path, and YOLOv5 perception (the graph against the CPU path, the
+fused step against the unfused detector).
 
 They skip without a CUDA card. This file imports neither JAX nor the JAX
 package, so on a machine with the card and no JAX it runs alone:
@@ -556,3 +557,108 @@ def test_blend_kernels_on_adversarial_pairs(cuda, tx, ty, s_ch):
                  list(range(11, 11 + s_ch))):
         if cols:
             assert _rel_err(g_k[:, cols], g_p[:, cols]) < 5e-5, cols
+
+
+@pytest.mark.cuda
+def test_yolo_card_matches_cpu(cuda):
+    """YOLOv5s (seed-0 weights) on one letterboxed 1066x1600 frame: the
+    card's decoded [15120, 85] predictions within 1e-4 + 1e-4 x each column
+    group's max (xywh; obj and class scores) of the CPU path's, TF32 off."""
+    from gaussianrpg_tpu_torch.sim import yolo
+
+    img = np.random.default_rng(0).uniform(0, 1, (1066, 1600, 3)).astype(
+        np.float32)
+    boxed = torch.from_numpy(yolo.letterbox(img, (384, 640))[0])[None]
+    spec = yolo.spec_yolov5()
+    got = yolo.forward(spec, yolo.init_params(spec, 0, device=cuda),
+                       boxed.to(cuda))[0].cpu()
+    ref = yolo.forward(spec, yolo.init_params(spec, 0, device="cpu"),
+                       boxed)[0]
+    assert got.shape == (15120, 85)
+    for cols in (slice(0, 4), slice(4, None)):
+        err = float((got[:, cols] - ref[:, cols]).abs().max())
+        assert err <= 1e-4 + 1e-4 * float(ref[:, cols].abs().max()), cols
+
+
+@pytest.mark.cuda
+def test_fused_step_matches_unfused_detector_on_card(cuda):
+    """The fused step (letterbox, YOLOv5s and top-K on the card, NMS on the
+    host) against the unfused detector (host letterbox, the graph on the
+    card, NMS over the full prediction) on one image: the same detections
+    (tests/test_torch_yolo.py's case, on the card)."""
+    from gaussianrpg_tpu_torch.sim import pipeline, yolo
+    from gaussianrpg_tpu_torch.sim.detector import VEHICLE_CLASSES
+
+    H, W = 96, 160
+    img = np.random.default_rng(3).uniform(0, 1, (3, H, W)).astype(
+        np.float32)
+    spec = yolo.spec_yolov5()
+    params = yolo.init_params(spec, seed=1, device=cuda)
+    step, gain, pad = pipeline.make_fused_step(
+        lambda cam: torch.from_numpy(img).to(cuda), spec, params, (H, W),
+        size=(64, 96), k=128, classes=VEHICLE_CLASSES)
+    out = pipeline.finish_detections(step(None), gain, pad, (H, W),
+                                     conf_thres=0.25)
+    ref = yolo.YoloDetector(spec=spec, params=params, size=(64, 96),
+                            conf_thres=0.25, classes=VEHICLE_CLASSES,
+                            device=cuda)(img.transpose(1, 2, 0))
+    assert ref.shape[0] > 5 and out.shape == ref.shape
+    np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tx,ty,emit", [(64, 32, True), (16, 16, True),
+                                        (16, 16, False)])
+def test_fused_step_waits_for_the_card_only_at_its_copy(cuda, tx, ty, emit,
+                                                        monkeypatch):
+    """The fused step's device part (render through `rasterize` on either
+    binning path, letterbox, YOLOv5s, top-K) makes no host sync: under
+    torch's sync debug mode it raises no warning once warmed up, so the
+    copy of the [K, 6] candidates is the frame's one wait."""
+    import warnings
+
+    monkeypatch.setattr(binning, "EMIT_PAIRS", emit)
+
+    from gaussianrpg_tpu_torch.ops.rasterize import suggest_binning_sizes
+    from gaussianrpg_tpu_torch.sim import pipeline, yolo
+
+    W, H = 320, 192
+    cam, means, t = _scene(3000, W, H, 5, cuda)
+    op, sem = t.pop("opacities"), t.pop("semantics")
+    sizes = suggest_binning_sizes(primitive_fields(
+        means, op, camera=cam, tile_x=tx, tile_y=ty, **t), width=W,
+        height=H)
+    bg = torch.zeros(3, device=cuda)
+
+    def render(c):
+        return rasterize(means, op, camera=c, bg_color=bg,
+                         capacity=sizes.capacity, tile_x=tx, tile_y=ty,
+                         tail_cap=sizes.tail_cap, big_cap=sizes.big_cap,
+                         emit_k=sizes.emit_k, device=cuda, **t).color
+
+    spec = yolo.spec_yolov5()
+    step, _, _ = pipeline.make_fused_step(
+        render, spec, yolo.init_params(spec, 0, device=cuda), (H, W),
+        size=(192, 320), k=64)
+    first = step(cam)
+    torch.cuda.synchronize()
+    # armed outside the record: the first arming in a process warns once
+    # from the call that arms it
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            cand = step.device_step(cam)
+        with warnings.catch_warnings(record=True) as control:
+            warnings.simplefilter("always")
+            bool(cand[0, 4] > 0)          # a host read: must be seen
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+    def syncs(ws):
+        return [str(w.message)[:200] for w in ws
+                if "synchroniz" in str(w.message)]
+
+    assert not syncs(seen), syncs(seen)
+    assert syncs(control)
+    np.testing.assert_array_equal(cand.cpu().numpy(), first)
