@@ -36,7 +36,12 @@ Phases, one JSON line each (any failure ends the run with exit code 1):
           mm_orient within 1e-5 of the float64 result's max on the
           written blocks; mm_orient on continuous random operands, where
           a control that rounds its operands to TF32 must fail that
-          limit), with kernel / plain / library times and bounds; then
+          limit), with kernel / plain / library times and bounds (each
+          floor variant's own, beside the card's launch floor, and the
+          kernels a call of each floor variant launches, which must be
+          one kernel and no memset, counted from the host's launch calls
+          in a profiler trace, where a control that launches it twice a
+          call must fail that check); then
           `tools/bwd_ablate` (kernel C beside its variant without the
           per-pair reductions, whose rows must be zero);
   small   one small frame on the card against the same frame through the
@@ -391,16 +396,6 @@ TOOL_KERNELS = [
 ]
 
 
-def written_rel_err(torch, got, ref, written):
-    """max |got - ref| over the written blocks, relative to max |ref|
-    there (ref in float64); 0 when nothing is written."""
-    if not bool(written.any()):
-        return 0.0, 0.0
-    d = float((got[written].double() - ref[written]).abs().max())
-    scale = float(ref[written].abs().max())
-    return d, d / scale if scale else d
-
-
 def check_gather(torch, mod, run):
     """The gather kernel against its plain version, bit for bit, on the
     tool's random rows and on the 16x16 frame's pair rows (with padding)."""
@@ -433,16 +428,18 @@ def check_gather(torch, mod, run):
                 bound_ms=b_ms, bound_by=b_by, library_ms=r["library_ms"])
 
 
-def stripped_errors(torch, mod, variant, g, cm, n_tiles, n_pix):
+def stripped_errors(mod, variant, g, cm, n_tiles, n_pix):
     """One stripped form of kernel B against its float64 plain version:
     (planes' relative error, per-tile staged sums' relative error, the
     larger absolute error), over the tiles with a chunk range."""
+    from gaussianrpg_tpu_torch.tools.floor_bench import written_error
+
     got, staged = mod.stripped_forward(variant, g, cm, n_tiles=n_tiles,
                                        n_pix=n_pix)
     ref, staged_ref, written = mod.stripped_forward_plain(
         variant, g.double(), cm, n_tiles=n_tiles, n_pix=n_pix)
-    d, rel = written_rel_err(torch, got, ref, written)
-    ds, rel_s = written_rel_err(torch, staged, staged_ref, written)
+    d, rel = written_error(got, ref, written)
+    ds, rel_s = written_error(staged, staged_ref, written)
     return rel, rel_s, max(d, ds)
 
 
@@ -464,7 +461,7 @@ def check_blend_floor(torch, mod, run):
                 cm, g = inputs[tag]
                 key = f"{tiling} {variant} {tag}"
                 errs[key], errs[f"{key} staged"], d = stripped_errors(
-                    torch, mod, variant, g, cm, n_tiles, n_pix)
+                    mod, variant, g, cm, n_tiles, n_pix)
                 abs_err = max(abs_err, d)
         if tiling == "64x32":
             cm, g = inputs["real"]
@@ -486,44 +483,85 @@ def check_blend_floor(torch, mod, run):
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
+def one_call_trace(fn):
+    """The launches of calls of fn (profiler trace over five calls): the
+    host's launch and memset calls a call, and the kernels and memsets
+    the device ran (names, launches and device ms a call, grid). A call
+    launches exactly one kernel and no memset when the host made one
+    launch call and no memset call a call and the device ran no other
+    kernel. The host's calls decide the count: the trace keeps each of
+    them, but may drop all of a trace's kernel records (`kernel_trace`)."""
+    from gaussianrpg_tpu_torch.tools._timing import kernel_trace
+
+    trace = kernel_trace(fn, reps=5, cats=("kernel", "gpu_memset",
+                                           "cuda_runtime"))
+    host = {k["name"]: k["launches_per_call"] for k in trace
+            if k["cat"] == "cuda_runtime"
+            and ("Launch" in k["name"] or "Memset" in k["name"])}
+    device = [k for k in trace if k["cat"] in ("kernel", "gpu_memset")]
+    launch_calls = sum(v for n, v in host.items() if "Launch" in n)
+    return dict(one_kernel=launch_calls == 1
+                and not any("Memset" in n for n in host)
+                and all(k["cat"] == "kernel" for k in device)
+                and len(device) <= 1,
+                host_calls=host,
+                launched=[dict(name=k["name"][:60], cat=k["cat"],
+                               per_call=k["launches_per_call"],
+                               ms=k["ms_per_call"], grid=k.get("grid"))
+                          for k in device])
+
+
 def check_floor_bench(torch, mod, run):
     """Every floor_bench variant at full size with a seeded mixed valid
-    pattern and uniform gdata, against the float64 plain version."""
-    import numpy as np
-
-    from gaussianrpg_tpu_torch.tools._timing import device_ms
+    pattern and uniform gdata, against the float64 plain version; then,
+    on the tool's inputs, each variant's byte bound and the kernels a call
+    launches (one kernel and no memset, or the check fails; a control
+    that launches it twice a call must fail that), and the card's launch
+    floor."""
+    from gaussianrpg_tpu_torch.tools._timing import (device_ms,
+                                                     launch_floor_ms)
 
     size = mod.FULL
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    gdata = torch.rand((size["capacity"], mod.NF), generator=gen,
-                       device="cuda")
-    errs, abs_err = {}, 0.0
     kw = dict(n_tiles=size["n_tiles"], n_pix=size["n_pix"])
+    both = mod.mixed_errors(mod.floor_bench)
+    errs = {name: rel for name, (_, rel) in both.items()}
+    abs_err = max(d for d, _ in both.values())
+    # each variant on the tool's inputs: its byte bound (the metadata, the
+    # valid chunks, each written block once) and the kernels a call
+    # launches
+    zeros = torch.zeros((size["capacity"], mod.NF), device="cuda")
+    bounds, traces = {}, {}
     for name in mod.VARIANTS:
-        n_steps, block, _, dyn = mod.variant_shape(name, False)
-        valid = np.random.default_rng(n_steps).random(n_steps) < 0.5
+        n_steps, block, valid, dyn = mod.variant_shape(name, False)
         cm = mod.chunk_meta(n_steps, valid, size["n_tiles"], "cuda")
-        g = gdata[:n_steps * block]
-        got = mod.floor_bench(g, cm, block=block, dyn_out=dyn, **kw)
-        ref, written = mod.floor_bench_plain(g.double(), cm, block=block,
-                                             dyn_out=dyn, **kw)
-        d, errs[name] = written_rel_err(torch, got, ref, written)
-        abs_err = max(abs_err, d)
+        bounds[name] = bound(mod.bytes_needed(cm, block=block, dyn_out=dyn,
+                                              **kw), 0)
+        traces[name] = one_call_trace(lambda: mod.floor_bench(
+            zeros[:n_steps * block], cm, block=block, dyn_out=dyn, **kw))
     name = "A 9216x128 skip-all dynout"
     n_steps, block, valid, dyn = mod.variant_shape(name, False)
     cm = mod.chunk_meta(n_steps, valid, size["n_tiles"], "cuda")
-    zeros = torch.zeros((n_steps * block, mod.NF), device="cuda")
+    # control: a call that launches the kernel twice must fail the check
+    control = one_call_trace(lambda: [mod.floor_bench(
+        zeros[:n_steps * block], cm, block=block, dyn_out=dyn, **kw)
+        for _ in range(2)])
     plain_ms = device_ms(lambda: mod.floor_bench_plain(
-        zeros, cm, block=block, dyn_out=dyn, **kw), reps=5)
-    # skip-all, dynamic out: the metadata read, every tile's block written
-    b_ms, b_by = bound(4 * n_steps + size["n_tiles"] * 5 * size["n_pix"]
-                       * 4, 0)
-    ok = max(errs.values()) <= TOOLS_RTOL
+        zeros[:n_steps * block], cm, block=block, dyn_out=dyn, **kw), reps=5)
+    b_ms, b_by = bounds[name]
+    one = all(t["one_kernel"] for t in traces.values())
+    ok = max(errs.values()) <= TOOLS_RTOL and one and not control[
+        "one_kernel"]
     emit(dict(phase="tools", kernel="floor_bench", rel_err=errs,
               tolerance=f"{TOOLS_RTOL} of the written blocks' max",
               runs=run, timed=name, plain_ms=plain_ms, bound_ms=b_ms,
-              bound_by=b_by, ok=ok))
-    check(ok, "tools", "floor_bench disagrees with its plain version")
+              bound_by=b_by, bound_ms_by_variant={
+                  k: v[0] for k, v in bounds.items()},
+              launch_floor_ms=launch_floor_ms(), trace=traces,
+              one_kernel_a_call=one, trace_two_calls_control=control,
+              ok=ok))
+    check(ok, "tools", "floor_bench disagrees with its plain version, or "
+          "a call launched other than one kernel and no memset, or the "
+          "trace check passed two launches a call")
     return dict(max_abs_err=abs_err, ms=run[name]["ms"], plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
@@ -532,45 +570,46 @@ def check_floor_bench2(torch, mod, run):
     """Every floor_bench2 variant at full size with a seeded mixed valid
     pattern, uniform gdata and distinct uniform input arrays (G reads two
     step-major [9216, 5, 2048] arrays), against the float64 plain
-    version."""
-    import numpy as np
-
-    from gaussianrpg_tpu_torch.tools._timing import device_ms
+    version; then, as in `check_floor_bench`, each variant's bound and
+    one call's kernels on the tool's inputs, and the launch floor."""
+    from gaussianrpg_tpu_torch.tools._timing import (device_ms,
+                                                     launch_floor_ms)
 
     size = mod.FULL
     n_steps, n_tiles, n_pix = size["n_steps"], size["n_tiles"], size["n_pix"]
-    gen = torch.Generator(device="cuda").manual_seed(8)
-    valid = np.random.default_rng(9).random(n_steps) < 0.5
-    cm = mod.chunk_meta(n_steps, valid, n_tiles, "cuda")
-    gdata = torch.rand((n_steps * mod.BLOCK, mod.NF), generator=gen,
-                       device="cuda")
-    errs, abs_err = {}, 0.0
+    both = mod.mixed_errors(mod.floor_bench2)
+    errs = {name: rel for name, (_, rel) in both.items()}
+    abs_err = max(d for d, _ in both.values())
+    # each variant on the tool's skip-all inputs: its byte bound (only the
+    # metadata is needed; nothing is written) and the kernels a call
+    # launches
+    _, cm0, ones, planes = mod.tool_inputs("cuda", False)
+    planes_c = torch.ones((n_steps, 5, n_pix), device="cuda")
+    bounds, traces = {}, {}
     for name, (n_in, dyn_in, dyn_out) in mod.VARIANTS.items():
-        n_blocks = n_tiles if dyn_in else n_steps
-        ins = [torch.rand((n_blocks, 5, n_pix), generator=gen,
-                          device="cuda") for _ in range(n_in)]
+        ins = [planes if dyn_in else planes_c] * n_in
         kw = dict(dyn_in=dyn_in, dyn_out=dyn_out, n_tiles=n_tiles,
                   n_pix=n_pix)
-        got = mod.floor_bench2(gdata, cm, ins, **kw)
-        ref, written = mod.floor_bench2_plain(
-            gdata.double(), cm, [x.double() for x in ins], **kw)
-        d, errs[name] = written_rel_err(torch, got, ref, written)
-        abs_err = max(abs_err, d)
-        del ins, got, ref
-        torch.cuda.empty_cache()
-    _, cm0, ones, _ = mod.tool_inputs("cuda", False)
+        bounds[name] = bound(mod.bytes_needed(cm0, n_in, **kw), 0)
+        traces[name] = one_call_trace(lambda: mod.floor_bench2(
+            ones, cm0, ins, **kw))
+    del planes_c
     name = "A dyn-out"
     plain_ms = device_ms(lambda: mod.floor_bench2_plain(
         ones, cm0, [], dyn_in=False, dyn_out=True, n_tiles=n_tiles,
         n_pix=n_pix), reps=5)
-    # skip-all: only the metadata is needed; nothing is written
-    b_ms, b_by = bound(4 * n_steps, 0)
-    ok = max(errs.values()) <= TOOLS_RTOL
+    b_ms, b_by = bounds[name]
+    one = all(t["one_kernel"] for t in traces.values())
+    ok = max(errs.values()) <= TOOLS_RTOL and one
     emit(dict(phase="tools", kernel="floor_bench2", rel_err=errs,
               tolerance=f"{TOOLS_RTOL} of the written blocks' max",
               runs=run, timed=name, plain_ms=plain_ms, bound_ms=b_ms,
-              bound_by=b_by, ok=ok))
-    check(ok, "tools", "floor_bench2 disagrees with its plain version")
+              bound_by=b_by, bound_ms_by_variant={
+                  k: v[0] for k, v in bounds.items()},
+              launch_floor_ms=launch_floor_ms(), trace=traces,
+              one_kernel_a_call=one, ok=ok))
+    check(ok, "tools", "floor_bench2 disagrees with its plain version, or "
+          "a call launched other than one kernel and no memset")
     return dict(max_abs_err=abs_err, ms=run[name]["ms"], plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
@@ -1104,8 +1143,8 @@ def loop_frame_floor(torch, gdata, lists, fwd):
     start, end = blend.tile_chunk_ranges(cm, n_tiles)
     forms = {}
     for variant in bf.VARIANTS:
-        rel, rel_s, d = stripped_errors(torch, bf, variant, gdata, cm,
-                                        n_tiles, n_pix)
+        rel, rel_s, d = stripped_errors(bf, variant, gdata, cm, n_tiles,
+                                        n_pix)
         ms = device_ms(lambda v=variant: bf.stripped_forward(
             v, gdata, cm, n_tiles=n_tiles, n_pix=n_pix), reps=10)
         forms[variant] = dict(rel_err=rel, staged_rel_err=rel_s,

@@ -99,6 +99,34 @@ def library(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
+def with_others(name: str, against, tag: str) -> list:
+    """The package's library for csrc/<name>.cu, then one library per
+    NAME=PATH in `against` (another tree's source of the same kernel, for
+    example the parent commit's unpacked from a `git archive`), compiled
+    in parallel with the package's flags: a list of (name, library,
+    nvcc's log), the package's named "package". The others are named by
+    `tag`, NAME and their source's hash in the build directory."""
+    lib = library(name)
+    out = [("package", lib, build_logs.get(name, ""))]
+    started = []
+    for spec in against:
+        other, _, path = spec.partition("=")
+        src = Path(path)
+        digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+        so = build_dir() / f"{tag}_{other}_{digest}.so"
+        so.parent.mkdir(parents=True, exist_ok=True)
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(so), str(src)]
+        started.append((other, so, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    for other, so, proc in started:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {other}:\n{log}")
+        out.append((other, ctypes.CDLL(str(so)), log))
+    return out
+
+
 def check(err: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error (launch refused or
     a bad argument)."""

@@ -15,7 +15,7 @@ made before the timed region). On the CPU, where the tools run their
 plain versions, the host clock times them instead. `kernel_trace` reads
 the kernels a call launches from a `torch.profiler` trace. The card's
 peak rates below set the bounds that `scan_bench` and `chip_smoke.py`
-print.
+print, and `launch_floor_ms` the least any kernel reads under the timer.
 """
 from __future__ import annotations
 
@@ -136,19 +136,43 @@ def timer_name(device: torch.device) -> str:
             if device.type == "cuda" else "host clock")
 
 
-def kernel_trace(fn, reps: int = 5) -> list[dict]:
+def launch_floor_ms(reps: int = 20) -> float:
+    """The least a kernel takes under `device_ms` on this card: an empty
+    spin kernel (`torch.cuda._sleep(0)`). A yardstick for kernels whose
+    work is little more than their launch."""
+    return device_ms(lambda: torch.cuda._sleep(0), reps=reps)
+
+
+def kernel_trace(fn, reps: int = 5,
+                 cats: tuple[str, ...] = ("kernel",)) -> list[dict]:
     """The kernels that `reps` calls of fn() launch on the card, from a
     `torch.profiler` trace (after one warm-up call): per kernel name its
-    launches per call, device ms per call, and the grid, block, registers
-    per thread and estimated achieved occupancy of its last launch."""
-    from torch.profiler import ProfilerActivity, profile
+    trace category, launches per call, device ms per call, and the grid,
+    block, registers per thread and estimated achieved occupancy of its
+    last launch. `cats` also admits other activities of the trace: its
+    memsets are "gpu_memset", and the host's CUDA runtime calls
+    "cuda_runtime" (`cudaLaunchKernel`, `cudaMemsetAsync`, ...).
+
+    The trace can drop device records, though it keeps every call on the
+    host: in a process that has run the port's checks, the first two or
+    three launches of five after the profiler starts, and, with the
+    profiler warm-up step below that avoids those, now and then all of a
+    trace's kernels, whose device timestamps then read a few µs before
+    their launch calls. So the profiler takes `reps` calls in a warm-up
+    step, whose records it discards, and then `reps` calls in the step
+    it keeps; a count that must be exact reads the host's calls."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 acc_events=True) as prof:
+        for _ in range(2):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "trace.json")
         prof.export_chrome_trace(path)
@@ -156,16 +180,18 @@ def kernel_trace(fn, reps: int = 5) -> list[dict]:
             events = json.load(f)["traceEvents"]
     by_name: dict[str, dict] = defaultdict(lambda: dict(n=0, us=0.0))
     for e in events:
-        if e.get("cat") != "kernel":
+        if e.get("cat") not in cats:
             continue
         k = by_name[e["name"]]
+        k["cat"] = e["cat"]
         k["n"] += 1
         k["us"] += float(e.get("dur", 0.0))
         args = e.get("args", {})
         k["last"] = {key: args.get(key) for key in (
             "grid", "block", "registers per thread",
             "est. achieved occupancy %")}
-    return [dict(name=name[:160], launches_per_call=k["n"] / reps,
+    return [dict(name=name[:160], cat=k["cat"],
+                 launches_per_call=k["n"] / reps,
                  ms_per_call=k["us"] / 1e3 / reps, **k.get("last", {}))
             for name, k in sorted(by_name.items(), key=lambda kv: -kv[1]["us"])]
 

@@ -5,9 +5,10 @@ of n_steps chunks of `block` rows of gdata [1,179,648, 16], a running
 `acc` that valid chunks add their sum to, and at each last-of-tile chunk
 `out[tile] = acc` (dynamic output index) or `out[0] = acc` (fixed), with
 every chunk skipped or every chunk valid. `floor_bench` launches
-`csrc/step_floor.cu` (one block per grid step for the chunk sums, then one
-per step for the writes, each writing block summing the prefix that the
-TPU carried in `acc`); variants A-D4 are the tool's.
+`csrc/step_floor.cu` once a call: a single pass in which each block takes
+a range of RANGE_ROWS / block steps and carries `acc` from the ranges
+before it by a decoupled look-back, on a scratch kept across calls (no
+memset a call; `scratch`); variants A-D4 are the tool's.
 
     python -m gaussianrpg_tpu_torch.tools.floor_bench [--device cpu] [--small]
 """
@@ -38,19 +39,67 @@ VARIANTS = {
     "D4 2304x512 valid-all dynout": (2304, 512, True, True),
 }
 
+# gdata rows of one kernel block's range of steps (`csrc/step_floor.cu`'s
+# kRangeRows): a block takes RANGE_ROWS // block steps
+RANGE_ROWS = 4096
+
+# a scratch's epochs run 1 .. EPOCHS - 1; then it is zeroed anew
+EPOCHS = 2 ** 30
+
 launches = 0               # kernel launches through `floor_bench`
+_scratch: dict = {}        # (device, stream) -> (words, last epoch)
+
+
+def meta_from_tiles(tiles, valid, device) -> torch.Tensor:
+    """Packed chunk metadata for one tile id a step (each tile's steps one
+    contiguous run): the tile, the last-of-tile bit where the next step's
+    tile differs (and at the final step), and the valid bit where `valid`
+    ([n_steps] bools, or one bool for all) is set."""
+    tiles = np.asarray(tiles, np.int64)
+    last = np.r_[tiles[1:] != tiles[:-1], True]
+    valid = np.broadcast_to(np.asarray(valid, bool), tiles.shape)
+    cm = tiles | (last.astype(np.int64) << 25) | (valid.astype(np.int64)
+                                                  << 26)
+    return torch.as_tensor(cm.astype(np.int32), device=device)
 
 
 def chunk_meta(n_steps: int, valid, n_tiles: int, device) -> torch.Tensor:
     """The tool's metadata (`tools/floor_bench.py:68-76`): tiles spread
     evenly over the steps, the last-of-tile bit, and the valid bit where
     `valid` ([n_steps] bools, or one bool for all) is set."""
-    tiles = (np.arange(n_steps) * n_tiles // n_steps).astype(np.int64)
-    last = np.r_[tiles[1:] != tiles[:-1], True]
-    valid = np.broadcast_to(np.asarray(valid, bool), (n_steps,))
-    cm = tiles | (last.astype(np.int64) << 25) | (valid.astype(np.int64)
-                                                  << 26)
-    return torch.as_tensor(cm.astype(np.int32), device=device)
+    return meta_from_tiles(np.arange(n_steps) * n_tiles // n_steps, valid,
+                           device)
+
+
+def scratch(n_steps: int, block: int, device) -> tuple[torch.Tensor, int]:
+    """(words, epoch): the kernel's scratch for a call of n_steps chunks
+    of `block` rows on the device's current stream (the ticket and one
+    status word a range), and the call's epoch. The words are zeroed once
+    and kept for the stream's later calls, each with the next epoch: a
+    call leaves the ticket at 0, and the kernel reads words of an earlier
+    epoch as not ready, so no call needs a memset. They are zeroed anew
+    when a call needs more of them or the epochs run out."""
+    fn = cuda_build.library("step_floor").grpg_step_floor_scratch_bytes
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+    n = fn(n_steps, block)
+    if n <= 0:
+        raise ValueError(f"step_floor: no scratch size for {n_steps} steps "
+                         f"of {block} rows")
+    key = (torch.device(device),
+           torch.cuda.current_stream(device).cuda_stream)
+    words, epoch = _scratch.get(key, (None, EPOCHS))
+    if words is None or words.numel() < n or epoch + 1 >= EPOCHS:
+        words, epoch = torch.zeros(n, dtype=torch.uint8, device=device), 0
+    _scratch[key] = (words, epoch + 1)
+    return words, epoch + 1
+
+
+def scratch_of(device):
+    """(words, last epoch) of the scratch `scratch` keeps for the device's
+    current stream, or None before its first call."""
+    return _scratch.get((torch.device(device),
+                         torch.cuda.current_stream(device).cuda_stream))
 
 
 def _fields(cm):
@@ -58,27 +107,76 @@ def _fields(cm):
         ((cm >> 26) & 1).bool()
 
 
+def standing_writes(chunk_meta, *, dyn_out: bool, n_tiles: int):
+    """(steps, dst): the steps whose write stands and the output block
+    each writes. Each last-of-tile step writes out[tile] (dyn_out; tiles
+    past n_tiles are not written), or the final one out[0]."""
+    tile, last, _ = _fields(chunk_meta)
+    sel = last & (tile < n_tiles) if dyn_out else last
+    steps = torch.nonzero(sel)[:, 0]
+    if not dyn_out:
+        steps = steps[-1:]
+    return steps, (tile[steps] if dyn_out else torch.zeros_like(steps))
+
+
+def bytes_needed(chunk_meta, *, block: int, dyn_out: bool, n_tiles: int,
+                 n_pix: int) -> int:
+    """Bytes the function must move on this metadata, each once: the
+    metadata, the chunks of valid steps and the output blocks written."""
+    _, _, valid = _fields(chunk_meta)
+    _, dst = standing_writes(chunk_meta, dyn_out=dyn_out, n_tiles=n_tiles)
+    return 4 * (chunk_meta.shape[0] + int(valid.sum()) * block * NF
+                + int(torch.unique(dst).numel()) * NFO * n_pix)
+
+
 def floor_bench_plain(gdata, chunk_meta, *, block: int, dyn_out: bool,
                       n_tiles: int, n_pix: int):
     """Plain version: (out [n_tiles, 5, n_pix], written [n_tiles]). acc at
-    step c is the sum of the valid chunks up to c; each last-of-tile step
-    writes it to out[tile] (dyn_out; tiles past n_tiles are not written)
-    or the final one to out[0]."""
+    step c is the sum of the valid chunks up to c, written by the steps of
+    `standing_writes`."""
     n_steps = chunk_meta.shape[0]
-    tile, last, valid = _fields(chunk_meta)
+    _, _, valid = _fields(chunk_meta)
     sums = gdata.reshape(n_steps, block * gdata.shape[1]).sum(dim=1)
     acc = torch.cumsum(torch.where(valid, sums, torch.zeros_like(sums)), 0)
     out = torch.zeros((n_tiles, NFO, n_pix), dtype=gdata.dtype,
                       device=gdata.device)
     written = torch.zeros(n_tiles, dtype=torch.bool, device=gdata.device)
-    sel = last & (tile < n_tiles) if dyn_out else last
-    steps = torch.nonzero(sel)[:, 0]
-    if not dyn_out:
-        steps = steps[-1:]
-    dst = tile[steps] if dyn_out else torch.zeros_like(steps)
+    steps, dst = standing_writes(chunk_meta, dyn_out=dyn_out,
+                                 n_tiles=n_tiles)
     out[dst] = acc[steps][:, None, None].expand(-1, NFO, n_pix)
     written[dst] = True
     return out, written
+
+
+def written_error(got, ref, written) -> tuple[float, float]:
+    """(max |got - ref|, that over max |ref|) on the written blocks (ref
+    in float64); zeros when none is written, and the absolute error
+    twice where the written blocks of ref are all zero."""
+    if not bool(written.any()):
+        return 0.0, 0.0
+    d = float((got[written].double() - ref[written]).abs().max())
+    scale = float(ref[written].abs().max())
+    return d, d / scale if scale else d
+
+
+def mixed_errors(call, device="cuda") -> dict:
+    """{variant: `written_error`} of `call` (a function of the wrapper's
+    arguments) against the float64 plain version, every variant at full
+    size with a seeded mixed valid pattern and uniform gdata: the card
+    check of `chip_smoke.py` and `floor_sweep`."""
+    gen = torch.Generator(device=device).manual_seed(7)
+    gdata = torch.rand((FULL["capacity"], NF), generator=gen, device=device)
+    kw = dict(n_tiles=FULL["n_tiles"], n_pix=FULL["n_pix"])
+    errs = {}
+    for name in VARIANTS:
+        n_steps, block, _, dyn = variant_shape(name, False)
+        valid = np.random.default_rng(n_steps).random(n_steps) < 0.5
+        cm = chunk_meta(n_steps, valid, FULL["n_tiles"], device)
+        g = gdata[:n_steps * block]
+        got = call(g, cm, block=block, dyn_out=dyn, **kw)
+        errs[name] = written_error(got, *floor_bench_plain(
+            g.double(), cm, block=block, dyn_out=dyn, **kw))
+    return errs
 
 
 def floor_bench(gdata, chunk_meta, *, block: int, dyn_out: bool,
@@ -108,20 +206,20 @@ def floor_bench(gdata, chunk_meta, *, block: int, dyn_out: bool,
     if gdata.device.type != "cuda":
         raise ValueError(f"floor_bench: unsupported device {gdata.device}")
     gdata = gdata.contiguous()
-    sums = torch.empty(n_steps, dtype=torch.float32, device=gdata.device)
     out = torch.empty((n_tiles, NFO, n_pix), dtype=torch.float32,
                       device=gdata.device)
     fn = cuda_build.library("step_floor").grpg_floor_bench
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+                   ctypes.c_uint, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(gdata.device).cuda_stream
     with torch.cuda.device(gdata.device):
+        words, epoch = scratch(n_steps, block, gdata.device)
         err = fn(gdata.data_ptr(), chunk_meta.data_ptr(), n_steps, block,
-                 int(dyn_out), sums.data_ptr(), out.data_ptr(), NFO * n_pix,
-                 n_tiles, stream)
+                 int(dyn_out), words.data_ptr(), epoch, out.data_ptr(),
+                 NFO * n_pix, n_tiles, stream)
     cuda_build.check(err, "floor_bench launch")
     launches += 1
     return out

@@ -8,9 +8,10 @@ metadata) or by the step (static): the layouts of the blend forward (A)
 and backward (F) against step-major ones (B, E, G). A valid step adds the
 sum of its chunk and of its input blocks to a running `acc` and writes it
 to its output block. `floor_bench2` launches `csrc/step_floor.cu`, the
-source it shares with `floor_bench` (one block per grid step for the sums,
-then one per step for the writes, each summing the prefix the TPU carried
-in `acc`).
+source it shares with `floor_bench`, once a call (no memset; the scratch
+is `floor_bench.scratch`'s): a single pass over ranges of 32 steps that
+carries `acc` by a decoupled look-back; where no step is valid, each
+block reads its metadata and exits.
 
     python -m gaussianrpg_tpu_torch.tools.floor_bench2 [--device cpu] [--small]
 """
@@ -19,12 +20,13 @@ from __future__ import annotations
 import argparse
 import ctypes
 
+import numpy as np
 import torch
 
 from ..ops import cuda_build
 from ..utils.device import resolve_device
 from ._timing import cycling, scaled, time_ms, timer_name
-from .floor_bench import NF, NFO, chunk_meta
+from .floor_bench import NF, NFO, chunk_meta, scratch, written_error
 
 BLOCK = 128
 FULL = dict(n_steps=9216, n_tiles=850, n_pix=2048)
@@ -41,14 +43,45 @@ VARIANTS = {
 launches = 0               # kernel launches through `floor_bench2`
 
 
+def standing_writes(chunk_meta, *, dyn_out: bool, n_tiles: int):
+    """(steps, dst): the steps whose write stands and the output block
+    each writes. Each valid step writes out[c], or out[tile] when the next
+    valid step has another tile (or there is none) and the tile is below
+    n_tiles (dyn_out)."""
+    tile = (chunk_meta & 0xFFFFFF).long()
+    valid = ((chunk_meta >> 26) & 1).bool()
+    wsteps = torch.nonzero(valid)[:, 0]
+    if dyn_out:
+        t = tile[wsteps]
+        keep = torch.cat([t[1:] != t[:-1], torch.ones_like(t[:1],
+                                                           dtype=torch.bool)])
+        wsteps = wsteps[keep & (t < n_tiles)]
+    return wsteps, (tile[wsteps] if dyn_out else wsteps)
+
+
+def bytes_needed(chunk_meta, n_in: int, *, dyn_in: bool, dyn_out: bool,
+                 n_tiles: int, n_pix: int) -> int:
+    """Bytes the function must move on this metadata, each once: the
+    metadata, the chunks of valid steps, the input blocks they read and
+    the output blocks written."""
+    tile = (chunk_meta & 0xFFFFFF).long()
+    valid = ((chunk_meta >> 26) & 1).bool()
+    n_valid = int(valid.sum())
+    n_blocks = (int(torch.unique(tile[valid & (tile < n_tiles)]).numel())
+                if dyn_in else n_valid)
+    _, dst = standing_writes(chunk_meta, dyn_out=dyn_out, n_tiles=n_tiles)
+    return 4 * (chunk_meta.shape[0] + n_valid * BLOCK * NF
+                + (n_in * n_blocks + int(torch.unique(dst).numel()))
+                * NFO * n_pix)
+
+
 def floor_bench2_plain(gdata, chunk_meta, ins, *, dyn_in: bool,
                        dyn_out: bool, n_tiles: int, n_pix: int):
     """Plain version: (out, written). Step c's sum is its chunk's plus its
     input blocks' (block tile, or c); acc at c is the sum over the valid
-    steps up to c; a valid step writes acc to out[c], or to out[tile] when
-    no later valid step of its tile follows (tiles past n_tiles are
-    neither read nor written). out has n_tiles blocks (dyn_out) or one a
-    step."""
+    steps up to c, written by the steps of `standing_writes` (tiles past
+    n_tiles are neither read nor written). out has n_tiles blocks
+    (dyn_out) or one a step."""
     n_steps = chunk_meta.shape[0]
     tile = (chunk_meta & 0xFFFFFF).long()
     valid = ((chunk_meta >> 26) & 1).bool()
@@ -65,13 +98,8 @@ def floor_bench2_plain(gdata, chunk_meta, ins, *, dyn_in: bool,
     out = torch.zeros((n_out, NFO, n_pix), dtype=gdata.dtype,
                       device=gdata.device)
     written = torch.zeros(n_out, dtype=torch.bool, device=gdata.device)
-    wsteps = torch.nonzero(valid)[:, 0]
-    if dyn_out:
-        t = tile[wsteps]
-        keep = torch.cat([t[1:] != t[:-1], torch.ones_like(t[:1],
-                                                           dtype=torch.bool)])
-        wsteps = wsteps[keep & (t < n_tiles)]
-    dst = tile[wsteps] if dyn_out else wsteps
+    wsteps, dst = standing_writes(chunk_meta, dyn_out=dyn_out,
+                                  n_tiles=n_tiles)
     out[dst] = acc[wsteps][:, None, None].expand(-1, NFO, n_pix)
     written[dst] = True
     return out, written
@@ -112,25 +140,52 @@ def floor_bench2(gdata, chunk_meta, ins, *, dyn_in: bool, dyn_out: bool,
     gdata = gdata.contiguous()
     ins = [x.contiguous() for x in ins]
     ptrs = [x.data_ptr() for x in ins] + [None] * (2 - len(ins))
-    sums = torch.empty(n_steps, dtype=torch.float32, device=gdata.device)
     out = torch.empty((n_tiles if dyn_out else n_steps, NFO, n_pix),
                       dtype=torch.float32, device=gdata.device)
     fn = cuda_build.library("step_floor").grpg_floor_bench2
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+                   ctypes.c_uint, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(gdata.device).cuda_stream
     with torch.cuda.device(gdata.device):
+        words, epoch = scratch(n_steps, BLOCK, gdata.device)
         err = fn(gdata.data_ptr(), chunk_meta.data_ptr(), n_steps, ptrs[0],
                  ptrs[1], len(ins), int(dyn_in), int(dyn_out),
-                 sums.data_ptr(), out.data_ptr(), NFO * n_pix, n_tiles,
-                 stream)
+                 words.data_ptr(), epoch, out.data_ptr(), NFO * n_pix,
+                 n_tiles, stream)
     cuda_build.check(err, "floor_bench2 launch")
     launches += 1
     return out
+
+
+def mixed_errors(call, device="cuda") -> dict:
+    """{variant: `written_error`} of `call` (a function of the wrapper's
+    arguments) against the float64 plain version, every variant at full
+    size with a seeded mixed valid pattern, uniform gdata and distinct
+    uniform input arrays (G reads two step-major [9216, 5, 2048] arrays):
+    the card check of `chip_smoke.py` and `floor_sweep`."""
+    n_steps, n_tiles, n_pix = FULL["n_steps"], FULL["n_tiles"], FULL["n_pix"]
+    gen = torch.Generator(device=device).manual_seed(8)
+    valid = np.random.default_rng(9).random(n_steps) < 0.5
+    cm = chunk_meta(n_steps, valid, n_tiles, device)
+    gdata = torch.rand((n_steps * BLOCK, NF), generator=gen, device=device)
+    errs = {}
+    for name, (n_in, dyn_in, dyn_out) in VARIANTS.items():
+        n_blocks = n_tiles if dyn_in else n_steps
+        ins = [torch.rand((n_blocks, NFO, n_pix), generator=gen,
+                          device=device) for _ in range(n_in)]
+        kw = dict(dyn_in=dyn_in, dyn_out=dyn_out, n_tiles=n_tiles,
+                  n_pix=n_pix)
+        got = call(gdata, cm, ins, **kw)
+        errs[name] = written_error(got, *floor_bench2_plain(
+            gdata.double(), cm, [x.double() for x in ins], **kw))
+        del ins, got
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+    return errs
 
 
 def tool_inputs(device: torch.device, small: bool):

@@ -24,10 +24,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import json
-import subprocess
-from pathlib import Path
 
 import torch
 
@@ -114,18 +111,6 @@ def measure(p: int, k: int, device=None, n_marks: int = 600_000,
     return rec
 
 
-def _compile(tag: str, src: Path):
-    """Start nvcc on one source with the package's flags; returns
-    (process, library path)."""
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    out = cuda_build.build_dir() / f"scan_bench_{tag}_{digest}.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    cmd = [cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(out),
-           str(src)]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True), out
-
-
 class Build:
     """One compiled cummax source, called through its C entry; `regs`
     holds ptxas's register and spill lines for it."""
@@ -167,18 +152,8 @@ class Build:
 def builds(against) -> list[Build]:
     """The package's kernel (as `scan.fused_cummax` loads it), then one
     build per NAME=PATH in `against`, compiled in parallel."""
-    lib = cuda_build.library("cummax")
-    out = [Build("package", lib, cuda_build.build_logs.get("cummax", ""))]
-    started = []
-    for spec in against:
-        name, _, path = spec.partition("=")
-        started.append((name, *_compile(name, Path(path))))
-    for name, proc, lib in started:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        out.append(Build(name, ctypes.CDLL(str(lib)), log))
-    return out
+    return [Build(*b) for b in cuda_build.with_others("cummax", against,
+                                                       "scan_bench")]
 
 
 def compare(bs: list[Build], p: int, k: int, n_marks: int = 600_000,

@@ -420,27 +420,95 @@ def test_stripped_blend_kernel_matches_plain(cuda, variant, tx, ty, tight):
                 assert _rel_written(staged, staged_ref, written) <= 1e-5
 
 
+def _floor_cases(r, n_tiles, seed, device):
+    """(name, chunk metadata) cases for the floor kernels, whose blocks
+    take ranges of r steps: 1, r - 1, r, r + 1 and 9216 steps with tiles
+    spread evenly and a mixed valid pattern; skip-all and valid-all at
+    3r + 5 steps; uneven tile runs (one step, r + 3 and 2r + 1 steps
+    crossing a range's end, tiles 2 and 4 valid only at the first step of
+    their run) with tile ids at and past n_tiles between them; and the
+    same with the last bit cleared on the final 2r steps, so that the
+    final last-of-tile step lies ranges before the end."""
+    from gaussianrpg_tpu_torch.tools import floor_bench as fb
+
+    rng = np.random.default_rng(seed)
+    cases = [(f"{n} steps", fb.chunk_meta(n, rng.random(n) < 0.5, n_tiles,
+                                          device))
+             for n in sorted({1, r - 1, r, r + 1, 9216} - {0})]
+    n = 3 * r + 5
+    cases += [(tag, fb.chunk_meta(n, v, n_tiles, device))
+              for tag, v in (("skip-all", False), ("valid-all", True))]
+    runs = [(0, 1), (1, 1), (n_tiles, 2), (2, r + 3), (3, 1),
+            (n_tiles + 3, r + 1), (4, 2 * r + 1), (n_tiles - 1, 2)]
+    tiles = np.concatenate([np.full(k, t) for t, k in runs])
+    valid = rng.random(tiles.size) < 0.5
+    for t in (2, 4):
+        run = np.flatnonzero(tiles == t)
+        valid[run] = False
+        valid[run[0]] = True
+    cm = fb.meta_from_tiles(tiles, valid, device)
+    cases.append(("uneven", cm))
+    tail = cm.clone()
+    tail[-2 * r:] &= ~(1 << 25)
+    cases.append(("uneven, no last bit at the end", tail))
+    return cases
+
+
+def _stale_words(fb, device):
+    """Overwrite the status words of the scratch that the floor kernels
+    keep for the current stream with words of its last call's epoch that
+    claim a published prefix of 1e9; returns (words, that epoch). A call
+    that read a word of an earlier call would take the 1e9."""
+    words, epoch = fb.scratch_of(device)
+    bits = int(np.float32(1e9).view(np.uint32))
+    words.view(torch.int64)[1:] = ((((epoch << 2) | 2) << 32) | bits)
+    return words, epoch
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("block", [128, 256, 512, 1024])
 @pytest.mark.parametrize("dyn_out", [True, False])
 def test_floor_bench_kernel_matches_plain(cuda, block, dyn_out):
-    """37 steps over 5 tiles with a mixed valid pattern, every block size,
-    dynamic and fixed output, against the float64 plain version."""
+    """Every block size, dynamic and fixed output, on each of
+    `_floor_cases` (boundary step counts against the kernel's range of
+    RANGE_ROWS // block steps, skip-all, valid-all, uneven runs across
+    ranges, tiles past n_tiles), each called twice in a row on different
+    gdata, against the float64 plain version (1e-5 of the written
+    blocks' max); one launch a call. At 9216 steps a third call follows
+    on the same scratch, whose words of the earlier calls were made to
+    claim false prefixes (`_stale_words`): it must not read them."""
+    from gaussianrpg_tpu_torch.ops import cuda_build
     from gaussianrpg_tpu_torch.tools import floor_bench as fb
 
-    n_steps, n_tiles, n_pix = 37, 5, 100
-    valid = np.random.default_rng(block).random(n_steps) < 0.5
-    cm = fb.chunk_meta(n_steps, valid, n_tiles, cuda)
+    r = fb.RANGE_ROWS // block
+    assert cuda_build.library("step_floor").grpg_step_floor_range(block) == r
+    n_tiles, n_pix = 5, 100
     gen = torch.Generator(device=cuda).manual_seed(block)
-    gdata = torch.rand((n_steps * block, 16), generator=gen, device=cuda)
     kw = dict(block=block, dyn_out=dyn_out, n_tiles=n_tiles, n_pix=n_pix)
-    n0 = fb.launches
-    got = fb.floor_bench(gdata, cm, **kw)
-    torch.cuda.synchronize()
-    assert fb.launches == n0 + 1
-    ref, written = fb.floor_bench_plain(gdata.double(), cm, **kw)
-    assert int(written.sum()) == (n_tiles if dyn_out else 1)
-    assert _rel_written(got, ref, written) <= 1e-5
+    for name, cm in _floor_cases(r, n_tiles, block, cuda):
+        n_steps = cm.shape[0]
+        gs = [torch.rand((n_steps * block, 16), generator=gen, device=cuda)
+              for _ in range(2)]
+        n0 = fb.launches
+        got = [fb.floor_bench(g, cm, **kw) for g in gs]
+        torch.cuda.synchronize()
+        assert fb.launches == n0 + 2, name
+        if name == "9216 steps":
+            words, epoch = _stale_words(fb, gs[0].device)
+            gs.append(gs[0] * 0.5)
+            got.append(fb.floor_bench(gs[-1], cm, **kw))
+            torch.cuda.synchronize()
+            assert fb.scratch_of(gs[0].device)[0].data_ptr() == \
+                words.data_ptr()
+            assert fb.scratch_of(gs[0].device)[1] == epoch + 1
+        for g, out in zip(gs, got):
+            ref, written = fb.floor_bench_plain(g.double(), cm, **kw)
+            last = (cm >> 25) & 1 == 1
+            if dyn_out:
+                last &= (cm & 0xFFFFFF) < n_tiles
+            assert bool(written.any()) == bool(last.any()), name
+            if written.any():
+                assert _rel_written(out, ref, written) <= 1e-5, name
 
 
 @pytest.mark.cuda
@@ -449,28 +517,47 @@ def test_floor_bench_kernel_matches_plain(cuda, block, dyn_out):
                                   "F cmaj-out +2 dyn-in",
                                   "G cmaj-out +2 cmaj-in"])
 def test_floor_bench2_kernel_matches_plain(cuda, name):
-    """37 steps of 128 rows over 5 tiles with a mixed valid pattern and
-    distinct inputs, each variant, against the float64 plain version."""
+    """Each variant on each of `_floor_cases` (ranges of 32 steps of 128
+    rows), with distinct inputs, each called twice in a row on different
+    gdata and inputs, against the float64 plain version; one launch a
+    call; at 9216 steps a third call after `_stale_words`."""
     from gaussianrpg_tpu_torch.tools import floor_bench as fb
     from gaussianrpg_tpu_torch.tools import floor_bench2 as fb2
 
-    n_steps, n_tiles, n_pix = 37, 5, 100
+    n_tiles, n_pix = 5, 100
     n_in, dyn_in, dyn_out = fb2.VARIANTS[name]
-    valid = np.random.default_rng(n_in).random(n_steps) < 0.5
-    cm = fb.chunk_meta(n_steps, valid, n_tiles, cuda)
     gen = torch.Generator(device=cuda).manual_seed(3)
-    gdata = torch.rand((n_steps * 128, 16), generator=gen, device=cuda)
-    ins = [torch.rand((n_tiles if dyn_in else n_steps, 5, n_pix),
-                      generator=gen, device=cuda) for _ in range(n_in)]
     kw = dict(dyn_in=dyn_in, dyn_out=dyn_out, n_tiles=n_tiles, n_pix=n_pix)
-    n0 = fb2.launches
-    got = fb2.floor_bench2(gdata, cm, ins, **kw)
-    torch.cuda.synchronize()
-    assert fb2.launches == n0 + 1
-    ref, written = fb2.floor_bench2_plain(gdata.double(), cm,
-                                          [x.double() for x in ins], **kw)
-    assert written.any()
-    assert _rel_written(got, ref, written) <= 1e-5
+    r = fb.RANGE_ROWS // fb2.BLOCK
+    for case, cm in _floor_cases(r, n_tiles, n_in, cuda):
+        n_steps = cm.shape[0]
+        calls = [(torch.rand((n_steps * fb2.BLOCK, 16), generator=gen,
+                             device=cuda),
+                  [torch.rand((n_tiles if dyn_in else n_steps, 5, n_pix),
+                              generator=gen, device=cuda)
+                   for _ in range(n_in)]) for _ in range(2)]
+        n0 = fb2.launches
+        got = [fb2.floor_bench2(g, cm, ins, **kw) for g, ins in calls]
+        torch.cuda.synchronize()
+        assert fb2.launches == n0 + 2, case
+        if case == "9216 steps":
+            words, epoch = _stale_words(fb, cm.device)
+            calls.append((calls[0][0] * 0.5, calls[0][1]))
+            got.append(fb2.floor_bench2(calls[-1][0], cm, calls[-1][1],
+                                        **kw))
+            torch.cuda.synchronize()
+            assert fb.scratch_of(cm.device)[0].data_ptr() == \
+                words.data_ptr()
+            assert fb.scratch_of(cm.device)[1] == epoch + 1
+        for (g, ins), out in zip(calls, got):
+            ref, written = fb2.floor_bench2_plain(
+                g.double(), cm, [x.double() for x in ins], **kw)
+            valid = (cm >> 26) & 1 == 1
+            if dyn_out:
+                valid &= (cm & 0xFFFFFF) < n_tiles
+            assert bool(written.any()) == bool(valid.any()), case
+            if written.any():
+                assert _rel_written(out, ref, written) <= 1e-5, case
 
 
 @pytest.mark.cuda

@@ -27,6 +27,7 @@ from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 from gaussianrpg_tpu.ops import pallas_blend as jpb  # noqa: E402
 
 from gaussianrpg_tpu_torch.ops import blend as tblend  # noqa: E402
+from gaussianrpg_tpu_torch.ops import cuda_build  # noqa: E402
 from gaussianrpg_tpu_torch.tools import _scene  # noqa: E402
 from gaussianrpg_tpu_torch.tools import blend_floor as tbf  # noqa: E402
 from gaussianrpg_tpu_torch.tools import floor_bench as tfb  # noqa: E402
@@ -378,6 +379,30 @@ def _valid_pattern(pattern, n_steps, tool_valid, seed):
     return np.random.default_rng(seed).random(n_steps) < 0.5
 
 
+def _uneven_meta(block, seed):
+    """Chunk metadata whose tile runs are uneven against the kernel's
+    ranges of r = RANGE_ROWS // block steps: runs of one step, runs of r + 3
+    and 2r + 1 steps that cross a range's end, and two tiles (2 and 5)
+    whose only valid step is the first of their run; the other steps
+    valid at random."""
+    r = tfb.RANGE_ROWS // block
+    lengths = [1, 1, r + 3, 2, 1, 2 * r + 1, 1, 2]
+    tiles = np.repeat(np.arange(FB_TILES), lengths)
+    valid = np.random.default_rng(seed).random(tiles.size) < 0.5
+    for t in (2, 5):
+        run = np.flatnonzero(tiles == t)
+        valid[run] = False
+        valid[run[0]] = True
+    return tfb.meta_from_tiles(tiles, valid, "cpu")
+
+
+def _floor_meta(pattern, n_steps, block, tool_valid, seed):
+    if pattern == "uneven":
+        return _uneven_meta(block, seed)
+    return tfb.chunk_meta(n_steps, _valid_pattern(
+        pattern, n_steps, tool_valid, seed), FB_TILES, "cpu")
+
+
 def _assert_written_close(got, ref, written):
     w_jax = ~np.isnan(ref).any(axis=(1, 2))
     np.testing.assert_array_equal(w_jax, written)
@@ -385,15 +410,16 @@ def _assert_written_close(got, ref, written):
         assert _rel_err(got[written], ref[written]) <= 1e-6
 
 
-@pytest.mark.parametrize("pattern", ["tool", "mixed"])
+@pytest.mark.parametrize("pattern", ["tool", "mixed", "uneven"])
 @pytest.mark.parametrize("name", list(tfb.VARIANTS))
 def test_floor_bench_matches_pallas(name, pattern):
     """Every variant at n_steps / 288 (32, 16, 8 or 4 steps), with the
-    tool's valid pattern (all or none) and a mixed one; seeded uniform
-    gdata (the tool's are zeros)."""
+    tool's valid pattern (all or none) and a mixed one, and on uneven tile
+    runs (`_uneven_meta`: r + 14 steps); seeded uniform gdata (the tool's
+    are zeros)."""
     n_steps, block, valid, dyn = tfb.variant_shape(name, small=True)
-    valid = _valid_pattern(pattern, n_steps, valid, n_steps + block)
-    cm = tfb.chunk_meta(n_steps, valid, FB_TILES, "cpu")
+    cm = _floor_meta(pattern, n_steps, block, valid, n_steps + block)
+    n_steps = cm.shape[0]
     gdata = tt(np.random.default_rng(block).uniform(
         0, 1, (n_steps * block, 16)).astype(np.float32))
     ref = _pallas_floor_bench(cm, gdata, block, dyn)
@@ -464,16 +490,16 @@ def _pallas_floor_bench2(cm, gdata, ins, dyn_in, dyn_out):
     return np.asarray(call(*args))
 
 
-@pytest.mark.parametrize("pattern", ["tool", "mixed"])
+@pytest.mark.parametrize("pattern", ["tool", "mixed", "uneven"])
 @pytest.mark.parametrize("name", list(tfb2.VARIANTS))
 def test_floor_bench2_matches_pallas(name, pattern):
     """Every variant at 32 steps of 128 rows, skip-all (the tool's) and a
-    mixed valid pattern; seeded uniform gdata and two distinct input
-    arrays (the tool passes one array twice)."""
+    mixed valid pattern, and on uneven tile runs (`_uneven_meta`: 46
+    steps); seeded uniform gdata and two distinct input arrays (the tool
+    passes one array twice)."""
     n_in, dyn_in, dyn_out = tfb2.VARIANTS[name]
-    n_steps = tfb2.SMALL["n_steps"]
-    valid = _valid_pattern(pattern, n_steps, False, 7)
-    cm = tfb.chunk_meta(n_steps, valid, FB_TILES, "cpu")
+    cm = _floor_meta(pattern, tfb2.SMALL["n_steps"], tfb2.BLOCK, False, 7)
+    n_steps = cm.shape[0]
     rng = np.random.default_rng(n_in)
     gdata = tt(rng.uniform(0, 1, (n_steps * 128, 16)).astype(np.float32))
     n_blocks = FB_TILES if dyn_in else n_steps
@@ -484,9 +510,90 @@ def test_floor_bench2_matches_pallas(name, pattern):
               n_pix=FB_PIX)
     got = tfb2.floor_bench2(gdata, cm, ins, **kw).numpy()
     _, written = tfb2.floor_bench2_plain(gdata, cm, ins, **kw)
-    assert written.any() == (pattern == "mixed")
+    assert written.any() == (pattern != "tool")
     _assert_written_close(got, ref, written.numpy())
     assert tfb2.launches == 0
+
+
+def _expected_bytes(name):
+    """Bytes a floor variant must move on its tool's inputs, counted from
+    the tools' shapes: 4 a metadata word, 64 a gdata row of valid chunks
+    (A2, D4: all), 4 * 5 * 2048 an output block (dynamic out: one a tile;
+    fixed: one; floor_bench2's skip-all forms write none)."""
+    if name in tfb.VARIANTS:
+        n_steps, block, valid, dyn = tfb.variant_shape(name, False)
+        return 4 * n_steps + valid * n_steps * block * 64 + (
+            tfb.FULL["n_tiles"] if dyn else 1) * 4 * 5 * 2048
+    return 4 * tfb2.FULL["n_steps"]
+
+
+@pytest.mark.parametrize("name", list(tfb.VARIANTS) + list(tfb2.VARIANTS))
+def test_floor_bytes_needed_on_the_tools_inputs(name):
+    """`bytes_needed`, the byte bound `chip_smoke.py` and `floor_sweep`
+    print, on each variant's full-size tool inputs."""
+    size = tfb.FULL
+    if name in tfb.VARIANTS:
+        n_steps, block, valid, dyn = tfb.variant_shape(name, False)
+        cm = tfb.chunk_meta(n_steps, valid, size["n_tiles"], "cpu")
+        got = tfb.bytes_needed(cm, block=block, dyn_out=dyn,
+                               n_tiles=size["n_tiles"], n_pix=size["n_pix"])
+    else:
+        n_in, dyn_in, dyn_out = tfb2.VARIANTS[name]
+        cm = tfb.chunk_meta(tfb2.FULL["n_steps"], False, size["n_tiles"],
+                            "cpu")
+        got = tfb2.bytes_needed(cm, n_in, dyn_in=dyn_in, dyn_out=dyn_out,
+                                n_tiles=size["n_tiles"], n_pix=size["n_pix"])
+    assert got == _expected_bytes(name)
+
+
+def test_floor_bytes_needed_follow_the_data():
+    """On uneven runs with a mixed valid pattern the bounds count each
+    valid chunk, each input block read (a tile's once) and each written
+    block once, as the plain versions write them."""
+    cm = _uneven_meta(128, 3)
+    n_steps = cm.shape[0]
+    tile = (cm & 0xFFFFFF).long()
+    valid = ((cm >> 26) & 1).bool()
+    gdata = torch.zeros((n_steps * 128, 16))
+    blk = 4 * 5 * FB_PIX
+    kw = dict(n_tiles=FB_TILES, n_pix=FB_PIX)
+    for dyn in (True, False):
+        _, written = tfb.floor_bench_plain(gdata, cm, block=128, dyn_out=dyn,
+                                           **kw)
+        assert tfb.bytes_needed(cm, block=128, dyn_out=dyn, **kw) == (
+            4 * n_steps + int(valid.sum()) * 128 * 64
+            + int(written.sum()) * blk)
+    n_tile_blocks = int(torch.unique(tile[valid]).numel())
+    for dyn_in in (True, False):
+        for dyn_out in (True, False):
+            ins = [torch.zeros((FB_TILES if dyn_in else n_steps, 5, FB_PIX))
+                   for _ in range(2)]
+            _, written = tfb2.floor_bench2_plain(
+                gdata, cm, ins, dyn_in=dyn_in, dyn_out=dyn_out, **kw)
+            n_read = n_tile_blocks if dyn_in else int(valid.sum())
+            assert tfb2.bytes_needed(cm, 2, dyn_in=dyn_in, dyn_out=dyn_out,
+                                     **kw) == (
+                4 * n_steps + int(valid.sum()) * 128 * 64
+                + (2 * n_read + int(written.sum())) * blk)
+
+
+def test_floor_range_rows_mirror_the_kernel():
+    """The wrappers' RANGE_ROWS is `csrc/step_floor.cu`'s kRangeRows, and
+    a range of the smallest block's steps fits one warp's lanes, as the
+    kernel's metadata decisions need."""
+    src = (cuda_build.CSRC / "step_floor.cu").read_text()
+    assert f"constexpr int kRangeRows = {tfb.RANGE_ROWS};" in src
+    assert tfb.RANGE_ROWS // min(tfb.BLOCKS) <= 32
+    assert all(tfb.RANGE_ROWS % b == 0 for b in tfb.BLOCKS)
+
+
+def test_floor_sweep_needs_the_card():
+    """`tools/floor_sweep` raises without a card, before it builds."""
+    from gaussianrpg_tpu_torch.tools import floor_sweep as sw
+
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            sw.main([])
 
 
 # --- mm_orient --------------------------------------------------------------
