@@ -98,10 +98,25 @@ Phases, one JSON line each (any failure ends the run with exit code 1):
           active counts, retries, launches, peak memory), kernel A at the
           trainer's capacity, and `python -m
           gaussianrpg_tpu_torch.apps.train --synthetic --iterations 30`
-          in a subprocess.
+          in a subprocess;
+  waymo   the configured path end to end: the synthetic street (600k
+          background Gaussians, a lead vehicle driving ahead, a parked car
+          in the tracks) written as a Waymo scene directory (40 FRONT
+          frames at 1920x1280, which the loader downscales to 1600x1066,
+          PLYs, tracks, sky masks, LiDAR depth), then through the entry
+          points in subprocesses: `apps.train --config
+          configs/waymo_149_1cam.yaml` for 30 steps, again to 40 (it must
+          resume from the checkpoint), `apps.simulate --config --cipv` with
+          the box-projection detector (success) and with a seeded-random
+          YOLOv5s state dict (the fused branch, not gated); in process the
+          parked car dropped, the configured loop braking to success, the
+          evaluation views' L1 falling from the built scene to the
+          checkpoint, the checkpoint's size and save / load seconds, and
+          the checkpoint's first view on the card against the CPU path.
 The line before the last is the kernel table ({"kernels": [...]}: kernels
 A, B and C with their launches summed over the closed loop, perception
-(c)'s and (d)'s loops, train_frame and train runs, B's and C's times from the loop
+(c)'s and (d)'s loops, train_frame, train and waymo runs (waymo's counted
+in its subprocesses too), B's and C's times from the loop
 frame, A's from the trainer's capacity, their errors the largest over
 every shape checked; the five tool kernels with their
 launches in the tools' runs, each counted from zero); the card's name
@@ -1533,6 +1548,463 @@ def phase_train(torch):
     return launches, cummax
 
 
+# ------------------------------------------------------------ phase waymo
+
+WAYMO_FRAMES = 40            # of the config's 151 (frames 10-160)
+WAYMO_W, WAYMO_H = 1920, 1280   # the FRONT camera's native size
+WAYMO_BKGD = 600_000
+WAYMO_STEPS = (30, 40)       # first run, then resumed to
+LEAD_ID, PARKED_ID = 1, 2
+# without braking the ego (8 m/s) comes within the collision threshold
+# (5.5 m) of the lead (2 m/s, 18 m ahead) 2.1 s in
+WAYMO_EGO_SPEED, WAYMO_LEAD_SPEED, WAYMO_LEAD_X = 8.0, 2.0, 18.0
+WAYMO_COLOR_NOISE = 0.2      # on the PLY colours (ground truth: the render)
+# the tape carries the scene's normalized timestamps (frame 0 -> 0, frame
+# 39 -> 1), as a tape of a Waymo scene's cameras does, and the loop's
+# verdict clock reads them, while its tick limit is (simulation time + 2)
+# s at 50 Hz: 0.6 (2.3 s of the 3.9 s scene) is reached within it, after
+# the 2.1 s at which an ego that does not brake collides
+WAYMO_SIM_TIME = "0.6"
+# synthetic world (camera looking +z, y down) -> a z-up world whose x is
+# the direction of travel (x' = z, y' = -x, z' = -y): the Waymo vehicle
+# axes, in which the simulator's ground truth and the ego's yaw are read
+TO_WAYMO = ((0.0, 0.0, 1.0), (-1.0, 0.0, 0.0), (0.0, -1.0, 0.0))
+
+
+def waymo_scene_dir(torch, root):
+    """Write the synthetic street (WAYMO_BKGD background Gaussians, one lead
+    vehicle driving ahead at WAYMO_LEAD_SPEED while the ego drives at
+    WAYMO_EGO_SPEED) as a Waymo scene directory: WAYMO_FRAMES FRONT images
+    rendered by the port at WAYMO_W x WAYMO_H, the background and LiDAR
+    PLYs (the scene's points, colours perturbed), the lead's PLY, tracks of
+    the lead and a parked car, sky masks and LiDAR depth. Returns
+    (intrinsic matrix, ego translations, setup seconds)."""
+    import numpy as np
+
+    from gaussianrpg_tpu_torch.models.gaussians import GaussianParams
+    from gaussianrpg_tpu_torch.ops.sh import SH_C0
+    from gaussianrpg_tpu_torch.sim.tape import save_tape
+    from gaussianrpg_tpu_torch.utils.synthetic import (fitting_renderer,
+                                                       lead_vehicle_scenario)
+    from gaussianrpg_tpu_torch.utils.waymo_layout import write_waymo_scene
+
+    t0 = time.time()
+    models, meta, arrays, cams, _, _, _ = lead_vehicle_scenario(
+        WAYMO_W, WAYMO_H, WAYMO_EGO_SPEED, WAYMO_LEAD_X, WAYMO_FRAMES,
+        WAYMO_BKGD, WAYMO_BKGD, 2048, "cuda")
+    ts = np.arange(WAYMO_FRAMES) / 10.0
+    pose = models.actor_pose
+    trans = pose.input_trans.clone()
+    trans[:, 0, 2] += torch.as_tensor(WAYMO_LEAD_SPEED * ts,
+                                      dtype=torch.float32, device="cuda")
+    models = models.replace(actor_pose=pose.replace(input_trans=trans))
+    render = fitting_renderer(models, meta, arrays, cams, 1, "cuda")
+    images, depth, sky = {}, {}, {}
+    for f, cam in enumerate(cams):
+        res = render(cam)
+        images[f, 0] = (res.rgb.clamp(0, 1) * 255 + 0.5).to(
+            torch.uint8).permute(1, 2, 0).cpu().numpy()
+        sky[f, 0] = (res.acc[0] < 0.05).cpu().numpy()
+        d = res.depth[0].cpu().numpy()
+        keep = np.random.default_rng(f).random(d.shape) < 0.05
+        depth[f, 0] = np.where(keep & (res.acc[0].cpu().numpy() > 0.5), d,
+                               0.0)
+    A = np.asarray(TO_WAYMO)
+    ego_t = np.zeros((WAYMO_FRAMES, 3))
+    ego_t[:, 0] = WAYMO_EGO_SPEED * ts                 # camera = ego origin
+    ego = np.tile(np.eye(4), (WAYMO_FRAMES, 1, 1))
+    ego[:, :3, 3] = ego_t
+    center = ego_t.mean(axis=0)
+
+    def colors(p: GaussianParams, n):
+        return np.clip(p.features_dc[:n, 0].cpu().numpy() * SH_C0 + 0.5, 0,
+                       1)
+
+    rng = np.random.default_rng(0)
+    n_bk = int(models.bkgd_aux.n_active)
+    bk_xyz = models.background.xyz[:n_bk].cpu().numpy() @ A.T - center
+    bk_rgb = np.clip(colors(models.background, n_bk)
+                     + rng.normal(0, WAYMO_COLOR_NOISE, (n_bk, 3)), 0, 1)
+    n_ac = int(models.actors_aux.n_active[0])
+    ac = models.actors
+    ac_xyz = ac.xyz[0, :n_ac].cpu().numpy() @ A.T
+    ac_rgb = np.clip(ac.features_dc[0, :n_ac, 0].cpu().numpy() * SH_C0 + 0.5,
+                     0, 1)
+    dims = ac_xyz.max(axis=0) - ac_xyz.min(axis=0) + 0.1   # l, w, h
+    lead = np.asarray(trans[:, 0].cpu().numpy(), np.float64) @ A.T
+    parked = np.array([45.0, 4.0, -0.5])                  # world, static
+    tracks = []
+    for f in range(WAYMO_FRAMES):
+        x, y, z = lead[f]
+        tracks.append((f, LEAD_ID, "vehicle", dims[2], dims[1], dims[0],
+                       x, y, z, 0.0, WAYMO_LEAD_SPEED))
+        px, py, pz = parked - ego_t[f]
+        tracks.append((f, PARKED_ID, "vehicle", 1.5, 1.8, 4.2, px, py, pz,
+                       0.0, 0.0))
+    K = np.array([[float(cams[0].K[0, 0]), 0, WAYMO_W / 2],
+                  [0, float(cams[0].K[1, 1]), WAYMO_H / 2], [0, 0, 1]])
+    intr = np.tile([K[0, 0], K[1, 1], K[0, 2], K[1, 2], 0, 0, 0, 0, 0],
+                   (5, 1))
+    ext = np.tile(np.eye(4), (5, 1, 1))
+    ext[:, :3, :3] = A                          # camera -> vehicle (OpenCV)
+    write_waymo_scene(
+        root, ego_poses=ego, intrinsics=intr, extrinsics=ext,
+        timestamps=1.6e9 + ts, tracks=tracks,
+        camera_vis={LEAD_ID: {f: [0] for f in range(WAYMO_FRAMES)},
+                    PARKED_ID: {f: [0] for f in range(WAYMO_FRAMES)}},
+        images=images, sky_masks=sky, lidar_depth=depth,
+        point_clouds={"bkgd": (bk_xyz, bk_rgb), "lidar": (bk_xyz, bk_rgb),
+                      f"obj_{LEAD_ID:03d}": (ac_xyz, ac_rgb)},
+        png_level=1)
+    del models, render, images
+    torch.cuda.empty_cache()
+    return time.time() - t0
+
+
+LAUNCH_RUNNER = """
+import json, runpy, sys
+from gaussianrpg_tpu_torch.ops import blend, scan
+sys.argv = sys.argv[1:]
+runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+print("launches " + json.dumps({"blend_fwd": blend.launches,
+                                 "cummax": scan.launches,
+                                 "blend_bwd": blend.bwd_launches}))
+"""
+
+
+def run_entry(module, args, timeout=600):
+    """`python -m module args` in a subprocess from the script's directory,
+    through a runner that prints the kernel launches of the run after it:
+    (returncode, stdout lines, launches, seconds)."""
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-c", LAUNCH_RUNNER, module, *args],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=timeout)
+    lines = proc.stdout.strip().splitlines()
+    launches = {"blend_fwd": 0, "cummax": 0, "blend_bwd": 0}
+    if lines and lines[-1].startswith("launches "):
+        launches = json.loads(lines.pop()[len("launches "):])
+    if proc.returncode != 0:
+        lines.append(proc.stderr[-2000:])
+    return proc.returncode, lines, launches, time.time() - t0
+
+
+def yolo_state_dict(torch, seed=0):
+    """A YOLOv5s state dict in the original key layout (conv + BN layers,
+    detect heads, anchors), drawn from `seed` with He-scaled weights."""
+    import numpy as np
+
+    from gaussianrpg_tpu_torch.sim.yolo import spec_yolov5
+
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32))
+
+    def convbn(prefix, cin, cout, k):
+        sd[f"{prefix}.conv.weight"] = t(rng.standard_normal(
+            (cout, cin, k, k)) * np.sqrt(2.0 / (k * k * cin)))
+        sd[f"{prefix}.bn.weight"] = t(rng.uniform(0.5, 1.5, cout))
+        sd[f"{prefix}.bn.bias"] = t(0.1 * rng.standard_normal(cout))
+        sd[f"{prefix}.bn.running_mean"] = t(0.1 * rng.standard_normal(cout))
+        sd[f"{prefix}.bn.running_var"] = t(rng.uniform(0.5, 2.0, cout))
+
+    for i, lay in enumerate(spec_yolov5()):
+        base = f"model.{i}"
+        if lay["kind"] == "conv":
+            convbn(base, lay["cin"], lay["cout"], lay["k"])
+        elif lay["kind"] == "c3":
+            c_ = lay["cout"] // 2
+            convbn(f"{base}.cv1", lay["cin"], c_, 1)
+            convbn(f"{base}.cv2", lay["cin"], c_, 1)
+            convbn(f"{base}.cv3", 2 * c_, lay["cout"], 1)
+            for j in range(lay["n"]):
+                convbn(f"{base}.m.{j}.cv1", c_, c_, 1)
+                convbn(f"{base}.m.{j}.cv2", c_, c_, 3)
+        elif lay["kind"] == "sppf":
+            c_ = lay["cin"] // 2
+            convbn(f"{base}.cv1", lay["cin"], c_, 1)
+            convbn(f"{base}.cv2", 4 * c_, lay["cout"], 1)
+        elif lay["kind"] == "detect":
+            for j, cin in enumerate(lay["cins"]):
+                sd[f"{base}.m.{j}.weight"] = t(rng.standard_normal(
+                    (255, cin, 1, 1)) * np.sqrt(1.0 / cin))
+                sd[f"{base}.m.{j}.bias"] = t(rng.standard_normal(255))
+            sd[f"{base}.anchors"] = t(
+                [[[1.25, 1.625], [2.0, 3.75], [4.125, 2.875]],
+                 [[1.875, 3.8125], [3.875, 2.8125], [3.6875, 7.4375]],
+                 [[3.625, 2.8125], [4.875, 6.1875], [11.65625, 10.1875]]])
+    return sd
+
+
+def done_line(lines):
+    """The numbers of the trainer's `done:` line."""
+    import re
+
+    line = next((ln for ln in lines if ln.startswith("done:")), "")
+    nums = dict(re.findall(r"(first loss|last loss|median step) "
+                           r"([-0-9.e+]+)", line))
+    return {k.replace(" ", "_"): float(v) for k, v in nums.items()}
+
+
+def fixed_view_l1(torch, models, meta, arrays, views, device):
+    """Mean L1 of `views` [(camera, image)] rendered in eval mode."""
+    from gaussianrpg_tpu_torch.render.renderer import (RenderOptions,
+                                                       probe_scene_capacity,
+                                                       render_scene)
+    from gaussianrpg_tpu_torch.train.losses import l1_loss
+
+    opts = probe_scene_capacity(models, meta, arrays, [c for c, _ in views],
+                                active_sh_degree=meta.bkgd_sh_degree,
+                                options=RenderOptions(), slack=1.3)
+    out = [float(l1_loss(render_scene(
+        models, meta, arrays, cam, active_sh_degree=meta.bkgd_sh_degree,
+        options=opts, device=device).rgb, gt)) for cam, gt in views]
+    return sum(out) / len(out)
+
+
+def phase_waymo(torch):
+    """The configured Waymo path end to end through the port's entry
+    points, in subprocesses: a scene directory in the converter's layout
+    (`waymo_scene_dir`), `apps.train --config configs/waymo_149_1cam.yaml`
+    for WAYMO_STEPS[0] steps (a JAX-format checkpoint and a composite PLY),
+    again to WAYMO_STEPS[1] (it must resume), `apps.simulate --config
+    --cipv` with the box-projection detector (success, with braking) and
+    with a seeded-random YOLOv5s state dict (the fused branch; verdict not
+    gated). In process: the parked car is dropped; the configured loop
+    through `config_setup` brakes to success (its frame times); a device
+    breakdown of its render and of a train step on the trained scene
+    (`apps/profile_trace._breakdown`, 3 each); the first
+    four train views' L1 falls from the built scene to the first run's
+    checkpoint (before the densify event); the
+    checkpoint's size and save / load seconds; the first train view
+    rendered from the checkpoint on the card against the CPU path at a
+    quarter of its size. The directory is deleted at the end."""
+    import shutil
+    import tempfile
+
+    from gaussianrpg_tpu_torch.config.config import load_config
+    from gaussianrpg_tpu_torch.data.waymo import WaymoScene
+    from gaussianrpg_tpu_torch.models.scene_builder import \
+        build_scene_from_waymo
+    from gaussianrpg_tpu_torch.models.scene_io import (
+        load_checkpoint, load_latest_checkpoint, save_checkpoint,
+        search_max_iteration)
+    from gaussianrpg_tpu_torch.render.camera import make_camera
+    from gaussianrpg_tpu_torch.apps.profile_trace import _breakdown
+    from gaussianrpg_tpu_torch.apps.simulate import config_setup
+    from gaussianrpg_tpu_torch.apps.train import (_autosize, optim_config,
+                                                  view_batches)
+    from gaussianrpg_tpu_torch.models.scene_graph import total_capacity
+    from gaussianrpg_tpu_torch.render.renderer import (RenderOptions,
+                                                       options_from_cfg,
+                                                       probe_scene_capacity,
+                                                       render_scene)
+    from gaussianrpg_tpu_torch.sim.loop import run_closed_loop
+    from gaussianrpg_tpu_torch.sim.tape import (build_tape_from_cameras,
+                                                save_tape)
+    from gaussianrpg_tpu_torch.train.trainer import (init_train_state,
+                                                     make_train_step)
+
+    t_phase = time.time()
+    tmp = tempfile.mkdtemp(prefix="waymo_phase_")
+    try:
+        root = os.path.join(tmp, "scene")
+        write_s = waymo_scene_dir(torch, root)
+        scene = WaymoScene(root, selected_frames=[0, WAYMO_FRAMES - 1],
+                           load_images=False)
+        dropped = sorted(scene.objects_info) == [LEAD_ID]
+        cams = scene.build_cameras("train", device="cuda")
+        tape = os.path.join(tmp, "tape.json")
+        save_tape(tape, build_tape_from_cameras([c for c, _ in cams],
+                                                upsample_rate=5))
+        weights = os.path.join(tmp, "yolov5s.pt")
+        torch.save(yolo_state_dict(torch), weights)
+        model_path = os.path.join(tmp, "model")
+        opts = ["source_path", root, "data.selected_frames",
+                f"[0, {WAYMO_FRAMES - 1}]", "model_path", model_path,
+                "sim.traj_file_path", tape,
+                "optim.densify_from_iter", "0",
+                "optim.densification_interval", "35"]
+        emit(dict(phase="waymo", step="scene", dir_bytes=sum(
+            os.path.getsize(os.path.join(d, f))
+            for d, _, fs in os.walk(root) for f in fs),
+            write_s=write_s, frames=WAYMO_FRAMES,
+            image=f"{WAYMO_W}x{WAYMO_H}", loaded=f"{cams[0][0].width}x"
+            f"{cams[0][0].height}", objects=sorted(scene.objects_info),
+            parked_dropped=dropped,
+            cuts=dict(frames=f"{WAYMO_FRAMES} of the config's 151",
+                      steps=f"{WAYMO_STEPS[1]} of 30000",
+                      densify="one event (iteration 35)"), ok=dropped))
+        check(dropped, "waymo", "remove_static_objects kept the parked car")
+        cfg = ["--config", "configs/waymo_149_1cam.yaml"]
+        launches = {"blend_fwd": 0, "cummax": 0, "blend_bwd": 0}
+        runs = {}
+        for name, module, args in (
+                ("train", "gaussianrpg_tpu_torch.apps.train",
+                 cfg + opts + ["train.iterations", str(WAYMO_STEPS[0])]),
+                ("resume", "gaussianrpg_tpu_torch.apps.train",
+                 cfg + opts + ["train.iterations", str(WAYMO_STEPS[1])]),
+                ("simulate", "gaussianrpg_tpu_torch.apps.simulate",
+                 cfg + ["--cipv", str(LEAD_ID), "--simulation-time",
+                        WAYMO_SIM_TIME] + opts),
+                ("simulate_yolo", "gaussianrpg_tpu_torch.apps.simulate",
+                 cfg + ["--cipv", str(LEAD_ID), "--simulation-time",
+                        WAYMO_SIM_TIME] + opts
+                 + ["sim.yolov5_weights_path", weights])):
+            rc, lines, ln, secs = run_entry(module, args)
+            for k in launches:
+                launches[k] += ln[k]
+            runs[name] = dict(rc=rc, seconds=secs, launches=ln,
+                              tail=lines[-6:])
+            emit(dict(phase="waymo", step=name, rc=rc, seconds=secs,
+                      launches=ln, tail=lines[-6:], ok=rc == 0))
+            check(rc == 0, "waymo", f"{name} failed")
+            runs[name]["lines"] = lines
+        first = done_line(runs["train"]["lines"])
+        resumed = any(ln.startswith(f"resumed from iteration "
+                                    f"{WAYMO_STEPS[0]}")
+                      for ln in runs["resume"]["lines"])
+        evals = [ln.strip() for r in ("train", "resume")
+                 for ln in runs[r]["lines"] if "[eval" in ln]
+        verdicts = {k: json.loads(runs[k]["lines"][-1])
+                    for k in ("simulate", "simulate_yolo")}
+        ckpt_dir = os.path.join(model_path, "trained_model")
+        ply = os.path.join(model_path, "point_cloud",
+                           f"iteration_{WAYMO_STEPS[0]}", "point_cloud.ply")
+        ok = (first.get("last_loss", 1e9) < first.get("first_loss", 0)
+              and resumed and search_max_iteration(ckpt_dir) == WAYMO_STEPS[1]
+              and os.path.exists(ply)
+              and verdicts["simulate"]["verdict"] == "success")
+        emit(dict(phase="waymo", step="runs", train=first,
+                  resume=done_line(runs["resume"]["lines"]), resumed=resumed,
+                  evals=evals, verdicts=verdicts, composite_ply=ply,
+                  ply_bytes=os.path.getsize(ply) if os.path.exists(ply)
+                  else None, launches=launches, ok=ok))
+        check(ok, "waymo", "training, resume or the closed loop failed")
+
+        # in process: the configured closed loop (`config_setup`) for its
+        # braking and frame times; the evaluation views' L1 from the built
+        # scene to the checkpoint; the checkpoint's size and save / load
+        # seconds; the first view on the card against the CPU path
+        cfg_obj = load_config("configs/waymo_149_1cam.yaml", opts)
+        reset_counts()
+        tape_d, render_fn, det, cam0, gt, v2c, _ = config_setup(
+            cfg_obj, LEAD_ID, 0, "cuda")
+        loop = run_closed_loop(
+            tape_d, render_fn, det, cam0, gt, start_frame=0,
+            brake_distance=15.0, collision_threshold=5.5,
+            simulation_time=float(WAYMO_SIM_TIME), ranger_extrinsic=v2c,
+            cam_height=1.1)
+        braked = any(e["brake"] != 0.0 for e in loop.log)
+        loop_ms = statistics.median(loop.frame_seconds) * 1e3
+        ok = loop.verdict == "success" and braked
+        emit(dict(phase="waymo", step="loop in process",
+                  verdict=loop.verdict, aeb_braked=braked,
+                  frames=loop.frames_rendered, median_frame_ms=loop_ms,
+                  min_gt_distance=loop.min_gt_distance, ok=ok))
+        check(ok, "waymo", "the configured loop did not brake to success")
+        prof_loop = _breakdown(lambda: render_fn(cam0), 3, top=8)
+        del tape_d, render_fn, det
+        views = [(c, torch.as_tensor(scene.load_image(int(c.frame), 0),
+                                     device="cuda")) for c, _ in cams[:4]]
+        built = build_scene_from_waymo(scene, cfg_obj, device="cuda")
+        models, meta, arrays, _ = built
+        l1_before = fixed_view_l1(torch, models, meta, arrays, views, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        trained = load_latest_checkpoint(ckpt_dir, models)
+        torch.cuda.synchronize()
+        load_s = time.time() - t0
+        l1_after = fixed_view_l1(torch, trained, meta, arrays, views, "cuda")
+        # before the densify event, which moves the scene away from the
+        # ground truth (the initial render), as in phase `train`
+        first_state, _, _ = load_checkpoint(
+            os.path.join(ckpt_dir, f"iteration_{WAYMO_STEPS[0]}.npz"),
+            init_train_state(models))
+        l1_first = fixed_view_l1(torch, first_state.models, meta, arrays,
+                                 views, "cuda")
+        del first_state
+        cam, gt = views[0]
+        batch = view_batches(scene, [(cam, gt.cpu().numpy())], cfg_obj,
+                             "cuda")[0]._replace(gt_image=gt)
+        step = make_train_step(
+            meta, arrays, optim_config(cfg_obj),
+            _autosize(options_from_cfg(cfg_obj.render), [cam], trained,
+                      meta, arrays), total_capacity(trained), device="cuda")
+        state = init_train_state(trained)
+        prof_train = _breakdown(lambda: step(
+            state, cam, batch, torch.Generator(device="cuda").manual_seed(1),
+            0), 3, top=8)
+        del state, step, batch
+        emit(dict(phase="waymo", step="profile", loop_frame=prof_loop,
+                  train_step=prof_train, ok=True))
+        path = os.path.join(ckpt_dir, f"iteration_{WAYMO_STEPS[1]}.npz")
+        nbytes = os.path.getsize(path)
+        t0 = time.time()
+        save_checkpoint(os.path.join(tmp, "again.npz"),
+                        init_train_state(trained), WAYMO_STEPS[1], 0)
+        save_s = time.time() - t0
+        os.remove(os.path.join(tmp, "again.npz"))
+        cam = cams[0][0]
+        K = cam.K.cpu().numpy() / 4
+        K[2, 2] = 1.0
+        V = cam.viewmatrix.cpu().numpy()
+        small = {}
+        for dev in ("cuda", "cpu"):
+            if dev == "cuda":
+                m, me, ar = trained, meta, arrays
+            else:
+                m, me, ar, _ = build_scene_from_waymo(scene, cfg_obj,
+                                                      device=dev)
+                m = load_latest_checkpoint(ckpt_dir, m)
+            c = make_camera(R=V[:3, :3].T, T=V[:3, 3], K=K,
+                            width=cam.width // 4, height=cam.height // 4,
+                            ego_pose=cam.ego_pose.cpu().numpy(),
+                            extrinsic=cam.extrinsic.cpu().numpy(),
+                            timestamp=float(cam.timestamp), device=dev)
+            if dev == "cuda":
+                ropts = probe_scene_capacity(
+                    m, me, ar, [c], active_sh_degree=me.bkgd_sh_degree,
+                    options=RenderOptions(), slack=1.3)
+            small[dev] = render_scene(m, me, ar, c,
+                                      active_sh_degree=me.bkgd_sh_degree,
+                                      options=ropts, device=dev)
+        a, b = small["cpu"], small["cuda"]
+        pa = torch.cat([a.rgb, a.depth, a.acc]).reshape(1, 5, -1)
+        pb = torch.cat([b.rgb, b.depth, b.acc]).cpu().reshape(1, 5, -1)
+        err, outliers, pixels = compare_planes(
+            torch, pb, pa, torch.ones(1, dtype=torch.bool), 0)
+        in_process = launch_counts()
+        for k in launches:
+            launches[k] += in_process[k]
+        ok = (l1_first < l1_before and not bool(b.overflow)
+              and not bool(a.overflow)
+              and outliers <= max(1, int(MAX_FLIP_SHARE * pixels)))
+        emit(dict(phase="waymo", step="checkpoint", bytes=nbytes,
+                  gb=nbytes / 1e9, save_s=save_s, load_s=load_s,
+                  eval_l1_built=l1_before,
+                  eval_l1_at={WAYMO_STEPS[0]: l1_first,
+                              WAYMO_STEPS[1]: l1_after},
+                  card_vs_cpu=dict(size=f"{c.width}x{c.height}",
+                                   max_abs_err=err, outlier_pixels=outliers,
+                                   pixels=pixels), ok=ok))
+        check(ok, "waymo", "checkpoint views or card vs CPU failed")
+        del models, trained, built, small, views
+        torch.cuda.empty_cache()
+        emit(dict(phase="waymo", seconds=time.time() - t_phase,
+                  train_median_step_ms=first.get("median_step"),
+                  resume_median_step_ms=done_line(
+                      runs["resume"]["lines"]).get("median_step"),
+                  loop_median_frame_ms=loop_ms, checkpoint_gb=nbytes / 1e9,
+                  launches=launches, ok=True))
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     try:
         import torch
@@ -1577,6 +2049,7 @@ def main():
         runs.append(phase_perception(torch))
         train_launches, c = phase_train(torch)
         runs.append(train_launches)
+        runs.append(phase_waymo(torch))
     except PhaseFailed as e:
         print(f"chip_smoke: {e}", file=sys.stderr)
         return 1

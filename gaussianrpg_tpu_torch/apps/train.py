@@ -1,29 +1,40 @@
-"""Training CLI, synthetic scene.
+"""Training CLI; counterpart of `gaussianrpg_tpu/apps/train.py`.
 
-Counterpart of `gaussianrpg_tpu/apps/train.py` with `--synthetic`: the
-settings are the `OptimConfig` and `RenderOptions` defaults with the JAX
-configuration's model defaults (SH degree 3, Fourier dim 1, seed 0). The
-YAML configuration, the Waymo scene, `--mesh`, checkpoints and PLY export
-come with later slices.
+    python -m gaussianrpg_tpu_torch.apps.train [--device cuda] \
+        --config configs/waymo_149_1cam.yaml source_path <scene dir> \
+        [KEY VALUE ...]
+
+reads the Waymo scene (`data/waymo.WaymoScene`, the converter's layout),
+builds the composite scene (`models/scene_builder`), trains with the
+configured loss planes (sky mask, LiDAR depth, object bound, mono normal,
+semantics: each wired when every train view has it), resumes from the
+latest `trained_model/iteration_*.npz` when there is one, and writes the
+JAX package's checkpoint and composite PLY files. `--device` and the other
+flags go before the `KEY VALUE` overrides.
 
     python -m gaussianrpg_tpu_torch.apps.train --synthetic --iterations 200
 
+trains the synthetic street scene (also when `source_path` is empty),
+without checkpoints. `--mesh` (multi-device training) is not ported yet.
+
 `run_training` is the loop itself (overflow discard-and-retry, densify and
-prune, capacity growth, opacity reset, SH-degree upgrade, evaluation),
-shared with `chip_smoke.py`.
+prune, capacity growth, opacity reset, SH-degree upgrade, evaluation, the
+per-iteration hook that writes checkpoints), shared with `chip_smoke.py`.
 """
 from __future__ import annotations
 
-import argparse
+import os
 import statistics
 import time
+import zipfile
 
 import numpy as np
 import torch
 
 from ..models import gaussians as G
 from ..models.scene_graph import actor_extents, total_capacity
-from ..render.renderer import RenderOptions, probe_scene_capacity, render_scene
+from ..render.renderer import (RenderOptions, options_from_cfg,
+                               probe_scene_capacity, render_scene)
 from ..train.losses import l1_loss, psnr
 from ..train.trainer import (Batch, OptimConfig, TrainState, _index,
                              init_train_state, make_train_step)
@@ -175,47 +186,77 @@ def _densify(state: TrainState, meta, arrays, ocfg: OptimConfig, it: int,
     return state, stats
 
 
+def _log_eval(rec, writer, split, it, rep):
+    rec["evals" if split == "train" else "evals_test"].append(dict(it=it,
+                                                                   **rep))
+    print(f"  [eval {split}] iter {it}: psnr {rep['psnr']:.2f} "
+          f"l1 {rep['l1']:.4f} ({rep['n_views']} views)", flush=True)
+    if writer is not None:
+        writer.add_scalar(f"eval_{split}/psnr", rep["psnr"], it)
+        writer.add_scalar(f"eval_{split}/l1", rep["l1"], it)
+
+
 def run_training(models, meta, arrays, cam_gt, ocfg: OptimConfig,
                  opts: RenderOptions, iters: int, *, device=None,
-                 seed: int = SEED, test_iters=(), log_every: int = 50):
-    """The training loop over `cam_gt` [(camera, gt image [3, H, W])]:
-    one random view per iteration, overflow discard-and-retry, the
-    densify / capacity-growth / opacity-reset / SH-upgrade schedule of the
-    JAX trainer, evaluation at `test_iters` and the last iteration.
+                 seed: int = SEED, test_iters=(), log_every: int = 50,
+                 batches=None, state: TrainState | None = None,
+                 start_it: int = 0, active_sh: int = 0, test_cam_gt=(),
+                 writer=None, on_step_end=None):
+    """The training loop over `cam_gt` [(camera, gt image [3, H, W] or
+    None)]: one random view per iteration (views without an image are
+    skipped), overflow discard-and-retry, the densify / capacity-growth /
+    opacity-reset / SH-upgrade schedule of the JAX trainer, evaluation of
+    `test_cam_gt` and the first four views at `test_iters` and the last
+    iteration. `batches` holds each view's loss planes (Batch without the
+    image); `state`, `start_it` and `active_sh` resume a checkpoint;
+    `writer` is a TensorBoard writer or None; `on_step_end(it, state,
+    active_sh)` runs after every iteration (checkpoints, PLYs).
     Returns (state, record): per-iteration losses and host step times
-    (synchronized), densify events, overflow retries."""
+    (synchronized), densify events, overflow retries, evaluations."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
-    n_total = total_capacity(models)
+    if state is None:
+        state = init_train_state(models)
+    n_total = total_capacity(state.models)
 
     def make_step(o):
         return make_train_step(meta, arrays, ocfg, o, n_total, device=dev)
 
     step_fn = make_step(opts)
-    state = init_train_state(models)
-    active_sh = 0
     max_sh = meta.bkgd_sh_degree
-    rec = dict(loss=[], step_s=[], densify=[], retries=0, evals=[])
+    rec = dict(loss=[], step_s=[], densify=[], retries=0, evals=[],
+               evals_test=[])
     ema_loss = ema_psnr = 0.0
     t0 = time.time()
-    for it in range(1, iters + 1):
+    for it in range(start_it + 1, iters + 1):
         if it % 1000 == 0 and active_sh < max_sh:
             active_sh += 1
-        cam, gt = cam_gt[int(rng.integers(len(cam_gt)))]
+        ci = int(rng.integers(len(cam_gt)))
+        cam, gt = cam_gt[ci]
+        if gt is None:
+            continue
+        batch = (batches[ci]._replace(gt_image=gt) if batches is not None
+                 else Batch(gt_image=gt))
         gen = torch.Generator(device=dev).manual_seed(it)
         ts = time.perf_counter()
         step_fn, opts, state, loss, scalars, res, retries = \
             step_with_overflow_retry(step_fn, make_step, opts, state, cam,
-                                     Batch(gt_image=gt), gen, active_sh)
+                                     batch, gen, active_sh)
         loss_f = float(loss)          # synchronizes the step
         rec["step_s"].append(time.perf_counter() - ts)
         rec["loss"].append(loss_f)
         rec["retries"] += retries
         ema_loss = 0.4 * loss_f + 0.6 * ema_loss
         ema_psnr = 0.4 * float(psnr(res.rgb, gt)) + 0.6 * ema_psnr
+        if writer is not None and it % 10 == 0:
+            writer.add_scalar("train/loss", loss_f, it)
+            writer.add_scalar("train/ema_psnr", ema_psnr, it)
+            for k, v in scalars.items():
+                writer.add_scalar(f"train/{k}", float(v), it)
         if it % log_every == 0:
             print(f"[{it}/{iters}] loss {ema_loss:.5f} psnr {ema_psnr:.2f} "
-                  f"({(time.time() - t0) / it:.3f}s/it)", flush=True)
+                  f"({(time.time() - t0) / (it - start_it):.3f}s/it)",
+                  flush=True)
 
         if (ocfg.densify_from_iter < it < ocfg.densify_until_iter
                 and it % ocfg.densification_interval == 0):
@@ -241,14 +282,15 @@ def run_training(models, meta, arrays, cam_gt, ocfg: OptimConfig,
             state = apply_opacity_reset(state, meta)
 
         if it in set(test_iters) | {iters}:
-            rep = evaluate_views(state.models, meta, arrays, cam_gt[:4],
-                                 opts, active_sh, device=dev)
-            if rep is not None:
-                rec["evals"].append(dict(it=it, **rep))
-                print(f"  [eval train] iter {it}: psnr {rep['psnr']:.2f} "
-                      f"l1 {rep['l1']:.4f} ({rep['n_views']} views)",
-                      flush=True)
-    rec["median_step_ms"] = statistics.median(rec["step_s"]) * 1e3
+            for split, cams in (("test", test_cam_gt), ("train", cam_gt[:4])):
+                rep = evaluate_views(state.models, meta, arrays, cams, opts,
+                                     active_sh, device=dev)
+                if rep is not None:
+                    _log_eval(rec, writer, split, it, rep)
+        if on_step_end is not None:
+            on_step_end(it, state, active_sh)
+    rec["median_step_ms"] = (statistics.median(rec["step_s"]) * 1e3
+                             if rec["step_s"] else None)
     rec["opts"] = opts
     return state, rec
 
@@ -281,29 +323,209 @@ def synthetic_setup(device=None, n_background=5000, bkgd_capacity=16384,
     return models, meta, arrays, list(zip(cams, gts)), opts
 
 
+def _make_writer(logdir: str):
+    """TensorBoard writer where tensorboard is installed, else None (as
+    the JAX trainer)."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+        return SummaryWriter(logdir)
+    except Exception:
+        return None
+
+
+def optim_config(cfg) -> OptimConfig:
+    """OptimConfig from a config's `optim` block (the keys the JAX
+    trainer reads)."""
+    o = cfg.optim
+    return OptimConfig(
+        position_lr_init=o.position_lr_init,
+        position_lr_final=o.position_lr_final,
+        position_lr_max_steps=o.position_lr_max_steps,
+        feature_lr=o.feature_lr,
+        opacity_lr=o.opacity_lr,
+        scaling_lr=o.scaling_lr,
+        rotation_lr=o.rotation_lr,
+        position_lr_init_obj=o.get("position_lr_init_obj"),
+        position_lr_final_obj=o.get("position_lr_final_obj"),
+        feature_lr_obj=o.get("feature_lr_obj"),
+        feature_rest_lr_obj=o.get("feature_rest_lr_obj"),
+        scaling_lr_obj=o.get("scaling_lr_obj"),
+        rotation_lr_obj=o.get("rotation_lr_obj"),
+        opacity_lr_obj=o.get("opacity_lr_obj"),
+        semantic_lr_obj=o.get("semantic_lr_obj"),
+        lambda_l1=o.lambda_l1,
+        lambda_dssim=o.lambda_dssim,
+        lambda_sky=o.lambda_sky,
+        lambda_semantic=o.lambda_semantic,
+        lambda_depth_lidar=o.lambda_depth_lidar,
+        lambda_reg=o.get("lambda_reg", 0.0),
+        lambda_normal_mono=o.get("lambda_normal_mono", 0.0),
+        lambda_scale_flatten=o.get("lambda_scale_flatten", 0.0),
+        lambda_opacity_sparse=o.get("lambda_opacity_sparse", 0.0),
+        densify_from_iter=o.densify_from_iter,
+        densify_until_iter=o.densify_until_iter,
+        densification_interval=o.densification_interval,
+        opacity_reset_interval=o.opacity_reset_interval,
+        densify_grad_threshold=o.densify_grad_threshold,
+        densify_grad_abs_bkgd=o.get("densify_grad_abs_bkgd", False),
+        densify_grad_threshold_obj=o.get("densify_grad_threshold_obj"),
+        densify_grad_abs_obj=o.get("densify_grad_abs_obj", False),
+        min_opacity=o.min_opacity,
+        percent_dense=o.percent_dense,
+        percent_big_ws=o.percent_big_ws,
+    )
+
+
+PLANE_KEYS = ("sky_mask", "lidar_depth", "obj_bound", "mono_normal",
+              "semantic")
+
+
+def view_batches(scene, cam_gt, cfg, device) -> list:
+    """Each train view's loss planes as a Batch (without the image), on
+    `device`. A plane is wired only when every view has it, so every step
+    sees one Batch structure."""
+    all_planes = [scene.load_batch_planes(int(c.frame), c.cam_id,
+                                          gt.shape[1:])
+                  if gt is not None else {} for c, gt in cam_gt]
+    have = {k: all(k in p for p in all_planes) for k in PLANE_KEYS}
+    lss = list(cfg.optim.get("lambda_sky_scale", []) or [])
+
+    def plane(planes, k):
+        return (torch.as_tensor(planes[k], device=device) if have[k]
+                else None)
+
+    return [Batch(gt_image=None, sky_mask=plane(p, "sky_mask"),
+                  lidar_depth=plane(p, "lidar_depth"),
+                  obj_bound=plane(p, "obj_bound"),
+                  mono_normal=plane(p, "mono_normal"),
+                  gt_semantic=plane(p, "semantic"),
+                  sky_scale=(torch.tensor(float(lss[c.cam_id]),
+                                          device=device)
+                             if lss and c.cam_id < len(lss) else None))
+            for (c, _), p in zip(cam_gt, all_planes)]
+
+
+def images_on(cam_gt, device) -> list:
+    """[(camera, image on `device` or None)] from host images."""
+    return [(c, None if g is None else torch.as_tensor(g, device=device))
+            for c, g in cam_gt]
+
+
+def resume(cfg, state: TrainState):
+    """Best-effort resume from the latest checkpoint of
+    `cfg.trained_model_dir` (`train.py:36-47`): (state, start iteration,
+    active SH degree), or the given state and 0 when there is none or it
+    does not fit the scene."""
+    from ..models.scene_io import load_checkpoint, search_max_iteration
+
+    it0 = search_max_iteration(cfg.trained_model_dir)
+    if not cfg.get("resume", True) or it0 is None:
+        return state, 0, 0
+    try:
+        state2, start_it, sh = load_checkpoint(
+            os.path.join(cfg.trained_model_dir, f"iteration_{it0}.npz"),
+            state)
+    except (OSError, ValueError, KeyError, EOFError,
+            zipfile.BadZipFile) as e:
+        print(f"resume from iteration {it0} failed ({e}); training from "
+              "scratch", flush=True)
+        return state, 0, 0
+    print(f"resumed from iteration {it0}", flush=True)
+    return state2, start_it, sh
+
+
 def main(argv=None):
-    parser = argparse.ArgumentParser(
-        description="gaussianrpg_tpu_torch training (synthetic scene)")
+    from ..config.config import load_config, make_argparser
+
+    parser = make_argparser("gaussianrpg_tpu_torch training")
     parser.add_argument("--synthetic", action="store_true",
-                        help="train the synthetic street scene (the only "
-                             "scene of this slice)")
-    parser.add_argument("--iterations", type=int, default=30000)
+                        help="train the synthetic street scene")
+    parser.add_argument("--iterations", type=int, default=None)
     parser.add_argument("--device", default=None,
                         help="torch device (default: cuda)")
+    parser.add_argument("--mesh", type=int, default=0, metavar="N",
+                        help="multi-device training (not ported yet)")
     args = parser.parse_args(argv)
-    if not args.synthetic:
-        parser.error("only --synthetic is supported (YAML configs and "
-                     "Waymo scenes come with a later slice)")
     dev = resolve_device(args.device)
-    models, meta, arrays, cam_gt, opts = synthetic_setup(dev)
+    if args.mesh and args.mesh > 1:
+        raise NotImplementedError("--mesh: multi-device training is not "
+                                  "ported yet")
+    cfg = load_config(args.config, args.opts, mode="train")
+    iters = args.iterations or cfg.train.iterations
+    ocfg = optim_config(cfg)
+    test_iters = set(cfg.train.get("test_iterations", []))
     t0 = time.time()
-    state, rec = run_training(models, meta, arrays, cam_gt, OptimConfig(),
-                              opts, args.iterations, device=dev,
-                              test_iters=(7000, 30000))
-    print(f"done: {args.iterations} iters in {time.time() - t0:.1f}s, "
-          f"first loss {rec['loss'][0]:.5f}, last loss "
-          f"{rec['loss'][-1]:.5f}, median step "
-          f"{rec['median_step_ms']:.2f} ms", flush=True)
+    if args.synthetic or not cfg.source_path:
+        models, meta, arrays, cam_gt, opts = synthetic_setup(dev)
+        state, rec = run_training(models, meta, arrays, cam_gt, ocfg, opts,
+                                  iters, device=dev, seed=cfg.seed,
+                                  test_iters=test_iters)
+    else:
+        state, rec = train_waymo(cfg, ocfg, iters, test_iters, dev)
+    losses = rec["loss"]
+    summary = (f", first loss {losses[0]:.5f}, last loss {losses[-1]:.5f}, "
+               f"median step {rec['median_step_ms']:.2f} ms"
+               if losses else "")
+    print(f"done: {iters} iters in {time.time() - t0:.1f}s{summary}",
+          flush=True)
+    return state, rec
+
+
+def train_waymo(cfg, ocfg: OptimConfig, iters: int, test_iters, dev):
+    """The Waymo branch of `main`: scene, batches, resume, training with
+    checkpoints at `checkpoint_iterations` and composite PLYs at
+    `save_iterations` (each with the last iteration)."""
+    from ..data.waymo import WaymoScene
+    from ..models.scene_builder import build_scene_from_waymo
+    from ..models.scene_io import save_checkpoint, save_composite_ply
+
+    scene = WaymoScene(
+        cfg.source_path,
+        selected_frames=cfg.data.selected_frames or None,
+        cameras=tuple(cfg.data.cameras),
+        box_scale=cfg.data.get("box_scale", 1.0),
+        test_every=(cfg.data.split_test
+                    if cfg.data.split_test > 0 else None),
+        train_every=(cfg.data.split_train
+                     if cfg.data.split_train > 0 else None),
+        resolution=cfg.resolution)
+    models, meta, arrays, actor_names = build_scene_from_waymo(
+        scene, cfg, device=dev)
+    cam_gt = scene.build_cameras("train", device=dev)
+    test_cam_gt = images_on(scene.build_cameras("test", device=dev), dev)
+    opts = options_from_cfg(
+        cfg.render,
+        render_normals=bool(cfg.optim.get("lambda_normal_mono", 0.0)))
+    if cfg.render.get("autosize", True):
+        opts = _autosize(opts, [c for c, _ in cam_gt], models, meta, arrays)
+    batches = view_batches(scene, cam_gt, cfg, dev)
+    cam_gt = images_on(cam_gt, dev)
+    state, start_it, sh = resume(cfg, init_train_state(models))
+    active_sh = min(sh, meta.bkgd_sh_degree) if start_it > 0 else 0
+    os.makedirs(cfg.trained_model_dir, exist_ok=True)
+    os.makedirs(cfg.point_cloud_dir, exist_ok=True)
+    writer = _make_writer(os.path.join(cfg.model_path, "tensorboard"))
+    ckpt_iters = set(cfg.train.checkpoint_iterations) | {iters}
+    ply_iters = set(cfg.train.save_iterations) | {iters}
+
+    def save(it, state, active_sh):
+        if it in ckpt_iters:
+            path = os.path.join(cfg.trained_model_dir, f"iteration_{it}.npz")
+            save_checkpoint(path, state, it, active_sh)
+            print(f"  checkpoint -> {path}", flush=True)
+        if it in ply_iters:
+            ply_dir = os.path.join(cfg.point_cloud_dir, f"iteration_{it}")
+            os.makedirs(ply_dir, exist_ok=True)
+            save_composite_ply(os.path.join(ply_dir, "point_cloud.ply"),
+                               state.models, actor_names)
+
+    state, rec = run_training(
+        models, meta, arrays, cam_gt, ocfg, opts, iters, device=dev,
+        seed=cfg.seed, test_iters=test_iters, batches=batches, state=state,
+        start_it=start_it, active_sh=active_sh, test_cam_gt=test_cam_gt,
+        writer=writer, on_step_end=save)
+    if writer is not None:
+        writer.close()
     return state, rec
 
 

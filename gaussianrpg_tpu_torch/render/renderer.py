@@ -4,8 +4,8 @@ correction.
 Counterpart of `gaussianrpg_tpu/render/renderer.py`: `RenderOptions`,
 `RenderResult`, `render_scene` (eval under `torch.no_grad`; train mode
 differentiable, with the gradient hooks, the actor flip and the sky ray
-jitter drawn from a `torch.Generator`), `render_until_fit` and
-`probe_scene_capacity`.
+jitter drawn from a `torch.Generator`), `render_until_fit`,
+`probe_scene_capacity` and `options_from_cfg`.
 """
 from __future__ import annotations
 
@@ -99,6 +99,18 @@ def probe_scene_capacity(models: SceneModels, meta: SceneMeta,
             ek = k if ek is None else max(ek, k)
     return options.replace(capacity=cap, tail_cap=tail, big_cap=big,
                            emit_k=ek)
+
+
+def options_from_cfg(render_cfg, **overrides) -> RenderOptions:
+    """RenderOptions from a config's `render` block (capacity and tiling)."""
+    kw = dict(
+        capacity=render_cfg.capacity,
+        tile_x=int(render_cfg.get("tile_x", 16)),
+        tile_y=int(render_cfg.get("tile_y", 16)),
+        sub_chunks=int(render_cfg.get("sub_chunks", 1)),
+    )
+    kw.update(overrides)
+    return RenderOptions(**kw)
 
 
 def render_scene(models: SceneModels, meta: SceneMeta, arrays: SceneArrays,

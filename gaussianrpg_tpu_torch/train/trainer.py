@@ -364,14 +364,15 @@ def make_train_step(meta: SceneMeta, arrays: SceneArrays, cfg: OptimConfig,
 
         if cfg.lambda_reg > 0 and meta.num_actors > 0:
             # the objects-only pass, through the training rasterizer (zero
-            # hooks whose gradients are not used)
+            # hooks, one row per actor slot, whose gradients are not used)
+            n_obj = models.actors.xyz.shape[0] * models.actors.xyz.shape[1]
             res_obj = render_scene(
                 models, meta, arrays, camera,
                 active_sh_degree=active_sh_degree, options=options,
                 include_background=False, train_mode=True,
                 generator=obj_gen,
-                means2d_offset=torch.zeros((n_total, 2), device=dev),
-                absgrad_sink=torch.zeros((n_total,), device=dev),
+                means2d_offset=torch.zeros((n_obj, 2), device=dev),
+                absgrad_sink=torch.zeros((n_obj,), device=dev),
                 device=device)
             acc_obj = torch.clamp(res_obj.acc, 1e-6, 1 - 1e-6)
             ent = -(acc_obj * torch.log(acc_obj)

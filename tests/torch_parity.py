@@ -121,3 +121,100 @@ def threshold_pixels(fields, radii, depths, width, height, skip_rel=1e-5,
         T = np.where(use & ~stop, test_t, T)
         alive &= ~stop
     return near
+
+
+# ------------------------------------------------- a Waymo scene directory
+
+# camera -> vehicle rotation of a forward camera with OpenCV axes (camera
+# z = vehicle x, camera x = -vehicle y, camera y = -vehicle z)
+CAM2VEH = np.array([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0], [0.0, -1.0, 0.0]])
+SCENE_TRACKS = {          # track id -> class, (h, w, l), world xyz at f
+    3: ("vehicle", (1.6, 1.9, 4.5), lambda f: (12.0 + 1.5 * f, 0.3, 0.8)),
+    5: ("vehicle", (1.5, 1.8, 4.2), lambda f: (20.0, -4.0, 0.75)),
+    8: ("pedestrian", (1.8, 0.6, 0.6), lambda f: (15.0, 3.0 - 0.5 * f, 0.9)),
+}
+MOVING_TRACKS = (3, 8)
+PARKED_TRACK = 5
+
+
+def _box_points(rng, dims, n):
+    h, w, l = dims
+    return rng.uniform(-0.45, 0.45, (n, 3)) * np.array([l, w, h])
+
+
+def write_test_scene(root, n_frames=6, width=128, height=96, seed=0):
+    """A scene directory in the converter's layout (written by the port's
+    `utils/waymo_layout`): `n_frames` frames of the FRONT camera at
+    width x height, an ego driving 1 m a frame along world x, a moving
+    vehicle (track 3), a parked one (5, static: dropped on load) and a
+    walking pedestrian (8); sky masks, LiDAR depth and mono-normal .npy
+    planes, semantic PNGs, and a `pointcloud.npz` (no input_ply: the
+    loaders build the PLYs from it). Returns the intrinsic matrix."""
+    from gaussianrpg_tpu_torch.utils.waymo_layout import write_waymo_scene
+
+    rng = np.random.default_rng(seed)
+    K = np.array([[100.0, 0, width / 2], [0, 100.0, height / 2], [0, 0, 1]])
+    intr = np.tile([100.0, 100.0, width / 2, height / 2, 0, 0, 0, 0, 0],
+                   (5, 1))
+    ext = np.tile(np.eye(4), (5, 1, 1))
+    for cam in range(5):
+        yaw = [0.0, 0.8, -0.8, 1.6, -1.6][cam]
+        rz = np.array([[math.cos(yaw), -math.sin(yaw), 0],
+                       [math.sin(yaw), math.cos(yaw), 0], [0, 0, 1]])
+        ext[cam, :3, :3] = rz @ CAM2VEH
+        ext[cam, :3, 3] = (1.5, 0.0, 1.8)
+    ego = np.tile(np.eye(4), (n_frames, 1, 1))
+    ego[:, 0, 3] = np.arange(n_frames) * 1.0 + 100.0
+    ego[:, 2, 3] = 0.3
+    tracks, vis = [], {}
+    for tid, (cls, dims, at) in SCENE_TRACKS.items():
+        for f in range(n_frames):
+            x, y, z = np.asarray(at(f)) - (f * 1.0, 0.0, 0.0)
+            heading = 1.57 if cls == "pedestrian" else 0.02 * f
+            tracks.append((f, tid, cls, *dims, round(x, 4), round(y, 4),
+                           round(z, 4), heading, 1.0))
+            vis.setdefault(tid, {})[f] = [0]
+
+    yy, xx = np.mgrid[0:height, 0:width]
+    w2c_cam = np.linalg.inv(ext[0])
+    images, sky, depth, normal, sem = {}, {}, {}, {}, {}
+    pts3d, pts2d = {}, {}
+    for f in range(n_frames):
+        base = np.stack([(xx * 2 + yy + 40 * c + 9 * f) % 256
+                         for c in range(3)], -1)
+        images[f, 0] = np.clip(base + rng.integers(0, 25, base.shape), 0,
+                               255).astype(np.uint8)
+        sky[f, 0] = (yy < height // 3) & (rng.random(yy.shape) < 0.95)
+        d = rng.uniform(4.0, 40.0, (height, width)).astype(np.float32)
+        d[rng.random(d.shape) > 0.12] = 0.0
+        depth[f, 0] = d
+        nrm = rng.standard_normal((height, width, 3)).astype(np.float32)
+        normal[f, 0] = nrm / np.linalg.norm(nrm, axis=-1, keepdims=True)
+        s = (yy * 3 // height).astype(np.uint8)
+        s[rng.random(s.shape) < 0.05] = 255
+        sem[f, 0] = s
+        # LiDAR: a ground grid and each box's interior, vehicle frame
+        gx, gy = np.meshgrid(np.arange(5.0, 20.0, 0.25),
+                             np.arange(-4.0, 4.0, 0.25), indexing="ij")
+        pts = [np.stack([gx.ravel(), gy.ravel(),
+                         np.zeros(gx.size) - 0.02 * f], -1)]
+        for tid, (cls, dims, at) in SCENE_TRACKS.items():
+            row = [t for t in tracks if t[0] == f and t[1] == tid][0]
+            c, s_ = math.cos(row[9]), math.sin(row[9])
+            rot = np.array([[c, -s_, 0], [s_, c, 0], [0, 0, 1]])
+            pts.append(_box_points(rng, dims, 120) @ rot.T
+                       + np.asarray(row[6:9]))
+        p = np.concatenate(pts)
+        pc = np.c_[p, np.ones(len(p))] @ w2c_cam.T
+        uv = pc[:, :3] @ K.T
+        uv = uv[:, :2] / np.maximum(uv[:, 2:3], 1e-3)
+        proj = np.zeros((len(p), 6), np.int16)
+        proj[:, 1] = np.clip(uv[:, 0], -1, width).astype(np.int16)
+        proj[:, 2] = np.clip(uv[:, 1], -1, height).astype(np.int16)
+        pts3d[f], pts2d[f] = p.astype(np.float32), proj
+    write_waymo_scene(
+        str(root), ego_poses=ego, intrinsics=intr, extrinsics=ext,
+        timestamps=1.5e9 + 0.1 * np.arange(n_frames), tracks=tracks,
+        camera_vis=vis, images=images, sky_masks=sky, lidar_depth=depth,
+        mono_normal=normal, semantic=sem, pointcloud=(pts3d, pts2d))
+    return K
