@@ -1123,24 +1123,32 @@ def phase_train_frame(torch, kout):
     return total
 
 
-def recorded_pair_lists(render, cam):
-    """The pair rows and lists of one render, recorded from the tile
-    stage's `pair_rows` by a wrapper that calls through."""
+def recorded_blends(run):
+    """The pair rows, lists and blend arguments of each blend in `run()`,
+    recorded from the tile stage's `pair_rows` and `blend_pairs` by
+    wrappers that call through: [(gdata, lists, bg, blend keywords)]."""
     from gaussianrpg_tpu_torch.ops import rasterize
 
-    got = []
-    orig = rasterize.pair_rows
+    rows, blends = [], []
+    orig_rows, orig_blend = rasterize.pair_rows, rasterize.blend_pairs
 
-    def recording(*args, **kw):
-        got.append(orig(*args, **kw))
-        return got[-1]
+    def recording_rows(*args, **kw):
+        rows.append(orig_rows(*args, **kw))
+        return rows[-1]
 
-    rasterize.pair_rows = recording
+    def recording_blend(gdata, lists, bg, **kw):
+        blends.append((bg.detach(), kw))
+        return orig_blend(gdata, lists, bg, **kw)
+
+    rasterize.pair_rows = recording_rows
+    rasterize.blend_pairs = recording_blend
     try:
-        render(cam)
+        run()
     finally:
-        rasterize.pair_rows = orig
-    return got[0]
+        rasterize.pair_rows = orig_rows
+        rasterize.blend_pairs = orig_blend
+    return [(g.detach(), lists, bg, kw)
+            for (g, lists), (bg, kw) in zip(rows, blends)]
 
 
 def loop_frame_floor(torch, gdata, lists, fwd):
@@ -1239,7 +1247,8 @@ def phase_loop(torch):
             {i * (n - 1) // (C_FRAMES - 1) for i in range(1, C_FRAMES)})]
     margins = []
     for frame, cam in picks:
-        gdata, lists = recorded_pair_lists(render_fn, cam)
+        gdata, lists, _, _ = recorded_blends(
+            lambda: render_fn(cam))[0]
         kw = dict(ntx=lists.n_tiles_x, nty=lists.n_tiles_y, tx=lists.tile_x,
                   ty=lists.tile_y, s_ch=0)
         first = frame == "first"
@@ -1561,9 +1570,11 @@ WAYMO_EGO_SPEED, WAYMO_LEAD_SPEED, WAYMO_LEAD_X = 8.0, 2.0, 18.0
 WAYMO_COLOR_NOISE = 0.2      # on the PLY colours (ground truth: the render)
 # the tape carries the scene's normalized timestamps (frame 0 -> 0, frame
 # 39 -> 1), as a tape of a Waymo scene's cameras does, and the loop's
-# verdict clock reads them, while its tick limit is (simulation time + 2)
-# s at 50 Hz: 0.6 (2.3 s of the 3.9 s scene) is reached within it, after
-# the 2.1 s at which an ego that does not brake collides
+# verdict clock reads them as seconds, while the ego's dynamics and the
+# tick limit ((simulation time + 2) s at 50 Hz) run in real seconds. 0.6
+# is chosen around that mismatch: it ends within the tick limit (2.3 s of
+# the 3.9 s scene), after the 2.1 s worked out above; the phase's control
+# (the same loop without AEB) shows the collision
 WAYMO_SIM_TIME = "0.6"
 # synthetic world (camera looking +z, y down) -> a z-up world whose x is
 # the direction of travel (x' = z, y' = -x, z' = -y): the Waymo vehicle
@@ -1583,7 +1594,6 @@ def waymo_scene_dir(torch, root):
 
     from gaussianrpg_tpu_torch.models.gaussians import GaussianParams
     from gaussianrpg_tpu_torch.ops.sh import SH_C0
-    from gaussianrpg_tpu_torch.sim.tape import save_tape
     from gaussianrpg_tpu_torch.utils.synthetic import (fitting_renderer,
                                                        lead_vehicle_scenario)
     from gaussianrpg_tpu_torch.utils.waymo_layout import write_waymo_scene
@@ -1765,69 +1775,109 @@ def fixed_view_l1(torch, models, meta, arrays, views, device):
     return sum(out) / len(out)
 
 
+def waymo_files(torch, tmp):
+    """The phase's inputs under `tmp`: the scene directory
+    (`waymo_scene_dir`), a tape of its train cameras and a seeded-random
+    YOLOv5s state dict. Returns (the `KEY VALUE` overrides that point
+    `configs/waymo_149_1cam.yaml` at them, the weights' path, the scene's
+    writing seconds)."""
+    from gaussianrpg_tpu_torch.data.waymo import WaymoScene
+    from gaussianrpg_tpu_torch.sim.tape import (build_tape_from_cameras,
+                                                save_tape)
+
+    root = os.path.join(tmp, "scene")
+    write_s = waymo_scene_dir(torch, root)
+    scene = WaymoScene(root, selected_frames=[0, WAYMO_FRAMES - 1],
+                       load_images=False)
+    tape = os.path.join(tmp, "tape.json")
+    save_tape(tape, build_tape_from_cameras(
+        [c for c, _ in scene.build_cameras("train", device="cuda")],
+        upsample_rate=5))
+    weights = os.path.join(tmp, "yolov5s.pt")
+    torch.save(yolo_state_dict(torch), weights)
+    opts = ["source_path", root, "data.selected_frames",
+            f"[0,{WAYMO_FRAMES - 1}]", "model_path",
+            os.path.join(tmp, "model"), "sim.traj_file_path", tape,
+            "optim.densify_from_iter", "0",
+            "optim.densification_interval", "35"]
+    return opts, weights, write_s
+
+
+def check_recorded(torch, recorded, scene, seed):
+    """Kernels B and C against their plain versions (not timed) on one
+    blend's own inputs as `recorded_blends` took them: its pair rows,
+    lists, background, semantic channels and statistic size. Kernel C's
+    composite error is printed, not held (kernel B's float32 sums on
+    saturated pixels, PERF.md §7)."""
+    from gaussianrpg_tpu_torch.ops import blend
+
+    gdata, lists, bg, bkw = recorded
+    kw = dict(ntx=lists.n_tiles_x, nty=lists.n_tiles_y, tx=lists.tile_x,
+              ty=lists.tile_y, s_ch=bkw["s_ch"])
+    W = bkw.get("stat_width") or bkw["width"]
+    H = bkw.get("stat_height") or bkw["height"]
+    rec_b, kern, plain, live = check_blend_fwd(
+        torch, blend, gdata, lists, bg, kw, scene, timed=False)
+    rec_c = check_blend_bwd(torch, blend, gdata, lists, bg, kern, plain,
+                            live, kw, W, H, seed=seed, scene=scene,
+                            timed=False, composite=False)
+    return rec_b, rec_c
+
+
 def phase_waymo(torch):
     """The configured Waymo path end to end through the port's entry
     points, in subprocesses: a scene directory in the converter's layout
-    (`waymo_scene_dir`), `apps.train --config configs/waymo_149_1cam.yaml`
+    (`waymo_files`), `apps.train --config configs/waymo_149_1cam.yaml`
     for WAYMO_STEPS[0] steps (a JAX-format checkpoint and a composite PLY),
     again to WAYMO_STEPS[1] (it must resume), `apps.simulate --config
     --cipv` with the box-projection detector (success, with braking) and
     with a seeded-random YOLOv5s state dict (the fused branch; verdict not
     gated). In process: the parked car is dropped; the configured loop
-    through `config_setup` brakes to success (its frame times); a device
-    breakdown of its render and of a train step on the trained scene
-    (`apps/profile_trace._breakdown`, 3 each); the first
-    four train views' L1 falls from the built scene to the first run's
-    checkpoint (before the densify event); the
+    through `config_setup` brakes to success (its frame times and
+    launches, counted around it alone), and the same loop without AEB
+    (brake distance 0) collides; kernels B and C against their plain
+    versions on the loop's first frame at full size and on a train step's
+    pair rows (the trained scene, the trainer's capacity), kernel A at
+    that capacity; the first four train views' L1 falls from the built
+    scene to the first run's checkpoint (before the densify event); the
     checkpoint's size and save / load seconds; the first train view
     rendered from the checkpoint on the card against the CPU path at a
-    quarter of its size. The directory is deleted at the end."""
+    quarter of its size. The directory is deleted at the end. Returns
+    (launches, the kernel checks' records by kernel)."""
+    import re
     import shutil
     import tempfile
 
+    from gaussianrpg_tpu_torch.apps.simulate import config_setup
+    from gaussianrpg_tpu_torch.apps.train import (_autosize, optim_config,
+                                                  view_batches)
     from gaussianrpg_tpu_torch.config.config import load_config
     from gaussianrpg_tpu_torch.data.waymo import WaymoScene
     from gaussianrpg_tpu_torch.models.scene_builder import \
         build_scene_from_waymo
+    from gaussianrpg_tpu_torch.models.scene_graph import total_capacity
     from gaussianrpg_tpu_torch.models.scene_io import (
         load_checkpoint, load_latest_checkpoint, save_checkpoint,
         search_max_iteration)
     from gaussianrpg_tpu_torch.render.camera import make_camera
-    from gaussianrpg_tpu_torch.apps.profile_trace import _breakdown
-    from gaussianrpg_tpu_torch.apps.simulate import config_setup
-    from gaussianrpg_tpu_torch.apps.train import (_autosize, optim_config,
-                                                  view_batches)
-    from gaussianrpg_tpu_torch.models.scene_graph import total_capacity
     from gaussianrpg_tpu_torch.render.renderer import (RenderOptions,
                                                        options_from_cfg,
                                                        probe_scene_capacity,
                                                        render_scene)
     from gaussianrpg_tpu_torch.sim.loop import run_closed_loop
-    from gaussianrpg_tpu_torch.sim.tape import (build_tape_from_cameras,
-                                                save_tape)
     from gaussianrpg_tpu_torch.train.trainer import (init_train_state,
                                                      make_train_step)
 
     t_phase = time.time()
     tmp = tempfile.mkdtemp(prefix="waymo_phase_")
     try:
-        root = os.path.join(tmp, "scene")
-        write_s = waymo_scene_dir(torch, root)
+        opts, weights, write_s = waymo_files(torch, tmp)
+        root = opts[opts.index("source_path") + 1]
+        model_path = opts[opts.index("model_path") + 1]
         scene = WaymoScene(root, selected_frames=[0, WAYMO_FRAMES - 1],
                            load_images=False)
         dropped = sorted(scene.objects_info) == [LEAD_ID]
         cams = scene.build_cameras("train", device="cuda")
-        tape = os.path.join(tmp, "tape.json")
-        save_tape(tape, build_tape_from_cameras([c for c, _ in cams],
-                                                upsample_rate=5))
-        weights = os.path.join(tmp, "yolov5s.pt")
-        torch.save(yolo_state_dict(torch), weights)
-        model_path = os.path.join(tmp, "model")
-        opts = ["source_path", root, "data.selected_frames",
-                f"[0, {WAYMO_FRAMES - 1}]", "model_path", model_path,
-                "sim.traj_file_path", tape,
-                "optim.densify_from_iter", "0",
-                "optim.densification_interval", "35"]
         emit(dict(phase="waymo", step="scene", dir_bytes=sum(
             os.path.getsize(os.path.join(d, f))
             for d, _, fs in os.walk(root) for f in fs),
@@ -1885,33 +1935,52 @@ def phase_waymo(torch):
                   else None, launches=launches, ok=ok))
         check(ok, "waymo", "training, resume or the closed loop failed")
 
-        # in process: the configured closed loop (`config_setup`) for its
-        # braking and frame times; the evaluation views' L1 from the built
-        # scene to the checkpoint; the checkpoint's size and save / load
-        # seconds; the first view on the card against the CPU path
+        # in process: the configured closed loop (`config_setup`), its
+        # launches counted around it alone, and its control without AEB
         cfg_obj = load_config("configs/waymo_149_1cam.yaml", opts)
-        reset_counts()
         tape_d, render_fn, det, cam0, gt, v2c, _ = config_setup(
             cfg_obj, LEAD_ID, 0, "cuda")
-        loop = run_closed_loop(
-            tape_d, render_fn, det, cam0, gt, start_frame=0,
-            brake_distance=15.0, collision_threshold=5.5,
-            simulation_time=float(WAYMO_SIM_TIME), ranger_extrinsic=v2c,
-            cam_height=1.1)
+        loop_kw = dict(start_frame=0, collision_threshold=5.5,
+                       simulation_time=float(WAYMO_SIM_TIME),
+                       ranger_extrinsic=v2c, cam_height=1.1)
+        reset_counts()
+        loop = run_closed_loop(tape_d, render_fn, det, cam0, gt,
+                               brake_distance=15.0, **loop_kw)
+        in_process = launch_counts()
+        control = run_closed_loop(tape_d, render_fn, det, cam0, gt,
+                                  brake_distance=0.0, **loop_kw)
         braked = any(e["brake"] != 0.0 for e in loop.log)
+        control_braked = any(e["brake"] != 0.0 for e in control.log)
         loop_ms = statistics.median(loop.frame_seconds) * 1e3
-        ok = loop.verdict == "success" and braked
+        ok = (loop.verdict == "success" and braked
+              and control.verdict == "collision" and not control_braked
+              and in_process["blend_fwd"] > 0 and in_process["cummax"] > 0)
         emit(dict(phase="waymo", step="loop in process",
                   verdict=loop.verdict, aeb_braked=braked,
                   frames=loop.frames_rendered, median_frame_ms=loop_ms,
-                  min_gt_distance=loop.min_gt_distance, ok=ok))
-        check(ok, "waymo", "the configured loop did not brake to success")
-        prof_loop = _breakdown(lambda: render_fn(cam0), 3, top=8)
+                  min_gt_distance=loop.min_gt_distance,
+                  launches=in_process,
+                  control=dict(brake_distance=0.0, verdict=control.verdict,
+                               aeb_braked=control_braked,
+                               ticks=control.ticks,
+                               min_gt_distance=control.min_gt_distance),
+                  ok=ok))
+        check(ok, "waymo", "the configured loop did not brake to success, "
+              "or collided on no account of braking")
+        for k in launches:
+            launches[k] += in_process[k]
+        checks = {"blend_fwd": [], "blend_bwd": [], "cummax": []}
+        for rec in check_recorded(
+                torch, recorded_blends(lambda: render_fn(cam0))[-1],
+                "waymo loop frame (first)", seed=7):
+            checks[rec["kernel"]].append(rec)
         del tape_d, render_fn, det
+        torch.cuda.empty_cache()
+
         views = [(c, torch.as_tensor(scene.load_image(int(c.frame), 0),
                                      device="cuda")) for c, _ in cams[:4]]
-        built = build_scene_from_waymo(scene, cfg_obj, device="cuda")
-        models, meta, arrays, _ = built
+        models, meta, arrays, _ = build_scene_from_waymo(scene, cfg_obj,
+                                                         device="cuda")
         l1_before = fixed_view_l1(torch, models, meta, arrays, views, "cuda")
         torch.cuda.synchronize()
         t0 = time.time()
@@ -1927,20 +1996,38 @@ def phase_waymo(torch):
         l1_first = fixed_view_l1(torch, first_state.models, meta, arrays,
                                  views, "cuda")
         del first_state
+
+        # kernels B, C and A on a train step of the trained scene at the
+        # capacity the trainer sizes on the built one (`train_waymo`)
+        sized = _autosize(options_from_cfg(
+            cfg_obj.render, render_normals=bool(
+                cfg_obj.optim.get("lambda_normal_mono", 0.0))),
+            [c for c, _ in cams], models, meta, arrays)
+        cli_caps = [int(m) for ln in runs["train"]["lines"] for m in
+                    re.findall(r"^pair capacity right-sized to (\d+)", ln)]
         cam, gt = views[0]
         batch = view_batches(scene, [(cam, gt.cpu().numpy())], cfg_obj,
                              "cuda")[0]._replace(gt_image=gt)
-        step = make_train_step(
-            meta, arrays, optim_config(cfg_obj),
-            _autosize(options_from_cfg(cfg_obj.render), [cam], trained,
-                      meta, arrays), total_capacity(trained), device="cuda")
+        step = make_train_step(meta, arrays, optim_config(cfg_obj), sized,
+                               total_capacity(trained), device="cuda")
         state = init_train_state(trained)
-        prof_train = _breakdown(lambda: step(
+        recorded = recorded_blends(lambda: step(
             state, cam, batch, torch.Generator(device="cuda").manual_seed(1),
-            0), 3, top=8)
+            0))[0]
         del state, step, batch
-        emit(dict(phase="waymo", step="profile", loop_frame=prof_loop,
-                  train_step=prof_train, ok=True))
+        for rec in check_recorded(torch, recorded,
+                                  "waymo train step (first view)", seed=7):
+            checks[rec["kernel"]].append(rec)
+        emit(dict(phase="waymo", step="train step rows",
+                  capacity=recorded[0].shape[0], sized=sized.capacity,
+                  trainer_cli_capacity=cli_caps,
+                  pairs=int(recorded[1].raw_total),
+                  overflowed=bool(recorded[1].overflowed), ok=True))
+        checks["cummax"].append(check_cummax(
+            "waymo", "waymo trainer capacity", recorded[0].shape[0], 1))
+        del recorded
+        torch.cuda.empty_cache()
+
         path = os.path.join(ckpt_dir, f"iteration_{WAYMO_STEPS[1]}.npz")
         nbytes = os.path.getsize(path)
         t0 = time.time()
@@ -1977,9 +2064,6 @@ def phase_waymo(torch):
         pb = torch.cat([b.rgb, b.depth, b.acc]).cpu().reshape(1, 5, -1)
         err, outliers, pixels = compare_planes(
             torch, pb, pa, torch.ones(1, dtype=torch.bool), 0)
-        in_process = launch_counts()
-        for k in launches:
-            launches[k] += in_process[k]
         ok = (l1_first < l1_before and not bool(b.overflow)
               and not bool(a.overflow)
               and outliers <= max(1, int(MAX_FLIP_SHARE * pixels)))
@@ -1992,7 +2076,7 @@ def phase_waymo(torch):
                                    max_abs_err=err, outlier_pixels=outliers,
                                    pixels=pixels), ok=ok))
         check(ok, "waymo", "checkpoint views or card vs CPU failed")
-        del models, trained, built, small, views
+        del models, trained, small, views
         torch.cuda.empty_cache()
         emit(dict(phase="waymo", seconds=time.time() - t_phase,
                   train_median_step_ms=first.get("median_step"),
@@ -2000,7 +2084,7 @@ def phase_waymo(torch):
                       runs["resume"]["lines"]).get("median_step"),
                   loop_median_frame_ms=loop_ms, checkpoint_gb=nbytes / 1e9,
                   launches=launches, ok=True))
-        return launches
+        return launches, checks
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2049,7 +2133,8 @@ def main():
         runs.append(phase_perception(torch))
         train_launches, c = phase_train(torch)
         runs.append(train_launches)
-        runs.append(phase_waymo(torch))
+        waymo_launches, waymo = phase_waymo(torch)
+        runs.append(waymo_launches)
     except PhaseFailed as e:
         print(f"chip_smoke: {e}", file=sys.stderr)
         return 1
@@ -2057,11 +2142,14 @@ def main():
     # B and C: times on the loop frame (their main path's inputs), A at
     # the trainer's capacity; errors over every shape checked
     errs_b = max(r["max_abs_err"]
-                 for r in [b, *kout["blend_fwd"].values()])
+                 for r in [b, *kout["blend_fwd"].values(),
+                           *waymo["blend_fwd"]])
     errs_c = max(r["max_abs_err"]
-                 for r in [a_loop, c, *kout["cummax"].values()])
+                 for r in [a_loop, c, *kout["cummax"].values(),
+                           *waymo["cummax"]])
     errs_d = max(r["max_abs_err"]
-                 for r in [d, *kout["blend_bwd"].values()])
+                 for r in [d, *kout["blend_bwd"].values(),
+                           *waymo["blend_bwd"]])
     emit({"kernels": [
         {"name": "blend_fwd", "route": "cuda",
          "source": "gaussianrpg_tpu_torch/csrc/blend_fwd.cu",

@@ -9,12 +9,20 @@ three workloads under `torch.profiler` and prints one JSON line for each:
   train  one step of the trainer (`train.trainer.make_train_step`: train
          render, losses, backward, Adam, densification statistics) on the
          synthetic 600k-background + 2-actor scene at 1066x1600.
+With `--config`, two workloads of the configured scene instead:
+  config_loop   `apps.simulate.config_setup`'s render function (the
+                latest checkpoint, its pair capacity) on its first camera;
+  config_train  one step of the trainer on the first train view with its
+                loss planes, the scene and capacity as `apps.train
+                --config` trains them, from the latest checkpoint.
 Each line holds the host ms per frame (synchronized), the device ms per
 frame spent in kernels and in copies, the device's idle share, and the
 kernels that took the most device time:
 
     python -m gaussianrpg_tpu_torch.apps.profile_trace [--frames 5] \
         [--trace DIR]      # DIR/<workload>.json: chrome traces
+    python -m gaussianrpg_tpu_torch.apps.profile_trace [--frames 5] \
+        --config CFG --cipv ID [KEY VALUE ...]
 """
 from __future__ import annotations
 
@@ -64,6 +72,45 @@ def _breakdown(run, frames, trace_path=None, top=12):
                      for n, us in ranked])
 
 
+def config_workloads(args, trace):
+    """The configured scene's loop render and train step (`--config`)."""
+    import torch
+
+    from ..apps.simulate import config_setup
+    from ..apps.train import optim_config, view_batches, waymo_setup
+    from ..config.config import load_config
+    from ..models.scene_graph import total_capacity
+    from ..models.scene_io import load_latest_checkpoint
+    from ..train.trainer import init_train_state, make_train_step
+
+    dev = torch.device("cuda")
+    cfg = load_config(args.config, args.opts)
+    _, render_fn, _, cam0, _, _, _ = config_setup(cfg, args.cipv, 0, dev)
+    rec = _breakdown(lambda: render_fn(cam0), args.frames,
+                     trace("config_loop"))
+    print(json.dumps(dict(workload="config_loop", config=args.config,
+                          **rec)), flush=True)
+    del render_fn
+    torch.cuda.empty_cache()
+
+    scene, models, meta, arrays, _, cam_gt, opts = waymo_setup(cfg, dev)
+    models = load_latest_checkpoint(cfg.trained_model_dir, models)
+    step = make_train_step(meta, arrays, optim_config(cfg), opts,
+                           total_capacity(models), device=dev)
+    state = init_train_state(models)
+    cam, gt = cam_gt[0]
+    batch = view_batches(scene, cam_gt[:1], cfg, dev)[0]._replace(
+        gt_image=torch.as_tensor(gt, device=dev))
+
+    def train_step():
+        return step(state, cam, batch,
+                    torch.Generator(device=dev).manual_seed(1), 0)
+
+    rec = _breakdown(train_step, args.frames, trace("config_train"))
+    print(json.dumps(dict(workload="config_train", config=args.config,
+                          capacity=opts.capacity, **rec)), flush=True)
+
+
 def main(argv=None):
     import torch
 
@@ -79,6 +126,9 @@ def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--frames", type=int, default=5)
     p.add_argument("--trace", default=None)
+    p.add_argument("--config", default=None)
+    p.add_argument("--cipv", type=int, default=-1)
+    p.add_argument("opts", nargs=argparse.REMAINDER, default=[])
     args = p.parse_args(argv)
     if args.trace:
         os.makedirs(args.trace, exist_ok=True)
@@ -86,6 +136,9 @@ def main(argv=None):
     def trace(name):
         return os.path.join(args.trace, f"{name}.json") if args.trace \
             else None
+
+    if args.config:
+        return config_workloads(args, trace)
 
     dev = torch.device("cuda")
     cam, (means, opac, colors, scales, quats), H, W = build_frozen_scene(

@@ -471,13 +471,12 @@ def main(argv=None):
     return state, rec
 
 
-def train_waymo(cfg, ocfg: OptimConfig, iters: int, test_iters, dev):
-    """The Waymo branch of `main`: scene, batches, resume, training with
-    checkpoints at `checkpoint_iterations` and composite PLYs at
-    `save_iterations` (each with the last iteration)."""
+def waymo_setup(cfg, dev):
+    """The configured scene as `train_waymo` trains it: (scene, models,
+    meta, arrays, actor names, [(camera, host image)] of the train split,
+    render options right-sized on the built scene)."""
     from ..data.waymo import WaymoScene
     from ..models.scene_builder import build_scene_from_waymo
-    from ..models.scene_io import save_checkpoint, save_composite_ply
 
     scene = WaymoScene(
         cfg.source_path,
@@ -492,12 +491,23 @@ def train_waymo(cfg, ocfg: OptimConfig, iters: int, test_iters, dev):
     models, meta, arrays, actor_names = build_scene_from_waymo(
         scene, cfg, device=dev)
     cam_gt = scene.build_cameras("train", device=dev)
-    test_cam_gt = images_on(scene.build_cameras("test", device=dev), dev)
     opts = options_from_cfg(
         cfg.render,
         render_normals=bool(cfg.optim.get("lambda_normal_mono", 0.0)))
     if cfg.render.get("autosize", True):
         opts = _autosize(opts, [c for c, _ in cam_gt], models, meta, arrays)
+    return scene, models, meta, arrays, actor_names, cam_gt, opts
+
+
+def train_waymo(cfg, ocfg: OptimConfig, iters: int, test_iters, dev):
+    """The Waymo branch of `main`: scene, batches, resume, training with
+    checkpoints at `checkpoint_iterations` and composite PLYs at
+    `save_iterations` (each with the last iteration)."""
+    from ..models.scene_io import save_checkpoint, save_composite_ply
+
+    scene, models, meta, arrays, actor_names, cam_gt, opts = waymo_setup(
+        cfg, dev)
+    test_cam_gt = images_on(scene.build_cameras("test", device=dev), dev)
     batches = view_batches(scene, cam_gt, cfg, dev)
     cam_gt = images_on(cam_gt, dev)
     state, start_it, sh = resume(cfg, init_train_state(models))

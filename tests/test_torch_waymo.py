@@ -50,6 +50,9 @@ CONFIG = "configs/waymo_149_1cam.yaml"
 SCENE_KW = dict(selected_frames=[0, 5], cameras=(0,), test_every=3,
                 resolution=2)
 CAPACITY = 32768
+# colour leaves against the JAX step (test_waymo_train_step_matches_jax)
+COLOUR_LEAVES = ("/features_dc", "/features_rest", "/semantic")
+COLOUR_RTOL = 3e-4
 
 
 def _opts(root, extra=()):
@@ -275,20 +278,22 @@ def waymo_step(dirs):
 
 def test_waymo_train_step_matches_jax(waymo_step):
     """Every loss term at 1e-5, the densification statistics at 1e-4, and
-    the step's gradients (Adam's first moment, 0.1 x the gradient) at
-    GRAD_RTOL (5e-5) of each leaf's max, scales and rotations at COND_RTOL
-    (5e-4) (tests/test_torch_raster_grad.py). A leaf where the two
-    packages differ by more is held to the port's step with its blend
-    backward in float64 instead: there the JAX step must be the one that
-    is off (further from the float64 step than the tolerance) and the port
-    within the tolerance of it. On this scene that is the colour
-    gradients: the JAX step's are 1.3e-4 (background) and 9.8e-3
-    (actors, whose gradients are ~1e-5) of their max from the float64
-    step, the port's 1e-5. The JAX step's rotation gradients are NaN
-    (the rendered-normals path; the tracked rotation residual's, ROADMAP
-    faults): the port's must be finite and within COND_RTOL of the
-    float64 step. The initial rotation gradients are zero in exact
-    arithmetic (isotropic Gaussians): the port's must be below 1e-9."""
+    the step's gradients (Adam's first moment, 0.1 x the gradient) against
+    the JAX step: at GRAD_RTOL (5e-5) of each leaf's max, scales and
+    rotations at COND_RTOL (5e-4) (tests/test_torch_raster_grad.py), and
+    the colour leaves (SH coefficients, semantics) at COLOUR_RTOL (3e-4):
+    of the leaf's max for the background, of the scene's largest gradient
+    for the actors, whose colour gradients are ~1e-5 of it. On this scene
+    the JAX step's colour gradients lie 1.5e-4 (background) and 2.1e-4 of
+    the scene's largest (actors) from the port's, and as far from the
+    port's step with its blend backward in float64: the JAX step's float32
+    sums are the ones that are off there, so the port's colour leaves are
+    also held within GRAD_RTOL of the float64 step. The JAX step's rotation
+    gradients are NaN (the rendered-normals path; the tracked rotation
+    residual's, ROADMAP faults): only there is the port held to the
+    float64 step alone, finite and within COND_RTOL of it. The initial
+    rotation gradients are zero in exact arithmetic (isotropic Gaussians):
+    the port's must be below 1e-9."""
     (js, jloss, jsc, _), (ts, tloss, tsc, _), (t64, _, _, _) = waymo_step
     assert not tsc["overflow"] and not bool(jsc["overflow"])
     np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
@@ -302,11 +307,11 @@ def test_waymo_train_step_matches_jax(waymo_step):
     assert int(tsc["n_pairs"]) == int(jsc["n_pairs"])
     mu_t, mu_j, mu_f = (_flat(tree_of(s.adam.mu)) for s in (ts, js, t64))
     assert set(mu_t) == set(mu_j) == set(mu_f)
+    largest = max(np.abs(v).max() for v in mu_j.values()
+                  if np.isfinite(v).all())
     by_jax, by_f64 = [], []
     for k in sorted(mu_j):
         x, y, z = (m[k].astype(np.float64) for m in (mu_t, mu_j, mu_f))
-        rtol = COND_RTOL if k.endswith(("/scaling", "/rotation",
-                                        "/opt_rots")) else GRAD_RTOL
         assert np.isfinite(x).all() and np.isfinite(z).all(), k
         if np.abs(z).max() < 1e-9:
             # zero in exact arithmetic: every Gaussian starts isotropic
@@ -314,18 +319,30 @@ def test_waymo_train_step_matches_jax(waymo_step):
             # move the image; the float64 step leaves rounding noise
             assert k.endswith("/rotation") and np.abs(x).max() < 1e-9, k
             continue
-        if np.isfinite(y).all():
-            scale = np.abs(y).max() + 1e-30
-            if np.abs(x - y).max() <= rtol * scale:
-                by_jax.append(k)
-                continue
-            assert np.abs(y - z).max() > rtol * scale, k
-        scale = np.abs(z).max() + 1e-30
-        assert np.abs(x - z).max() <= rtol * scale, (
-            k, np.abs(x - z).max() / scale)
-        by_f64.append(k)
+        if not np.isfinite(y).all():
+            assert k.endswith(("/rotation", "/opt_rots")), k
+            scale = np.abs(z).max()
+            assert np.abs(x - z).max() <= COND_RTOL * scale, (
+                k, np.abs(x - z).max() / scale)
+            by_f64.append(k)
+            continue
+        rtol, scale = GRAD_RTOL, np.abs(y).max() + 1e-30
+        if k.endswith(("/scaling", "/rotation", "/opt_rots")):
+            rtol = COND_RTOL
+        elif k.endswith(COLOUR_LEAVES):
+            rtol = COLOUR_RTOL
+            if k.startswith("/actors/"):
+                scale = largest
+            f64 = np.abs(z).max()
+            assert np.abs(x - z).max() <= GRAD_RTOL * f64, (
+                k, np.abs(x - z).max() / f64)
+        assert np.abs(x - y).max() <= rtol * scale, (
+            k, np.abs(x - y).max() / scale)
+        by_jax.append(k)
     assert {"/background/xyz", "/background/opacity", "/background/scaling",
+            "/background/features_dc", "/background/features_rest",
             "/actors/xyz", "/actors/opacity", "/actors/scaling",
+            "/actors/features_dc", "/actors/features_rest",
             "/actor_pose/opt_trans"} <= set(by_jax), by_f64
     for name in ("bkgd_aux", "actors_aux"):
         a = _flat(tree_of(getattr(ts.models, name)))
