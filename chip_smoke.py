@@ -98,7 +98,7 @@ Phases, one JSON line each (any failure ends the run with exit code 1):
           active counts, retries, launches, peak memory), kernel A at the
           trainer's capacity, and `python -m
           gaussianrpg_tpu_torch.apps.train --synthetic --iterations 30`
-          in a subprocess;
+          in a subprocess (it must write `iteration_30.npz`);
   waymo   the configured path end to end: the synthetic street (600k
           background Gaussians, a lead vehicle driving ahead, a parked car
           in the tracks) written as a Waymo scene directory (40 FRONT
@@ -112,11 +112,26 @@ Phases, one JSON line each (any failure ends the run with exit code 1):
           parked car dropped, the configured loop braking to success, the
           evaluation views' L1 falling from the built scene to the
           checkpoint, the checkpoint's size and save / load seconds, and
-          the checkpoint's first view on the card against the CPU path.
+          the checkpoint's first view on the card against the CPU path;
+  eval    the evaluation and export apps on phase waymo's trained scene
+          (its directory, before it is deleted), in subprocesses:
+          `apps.render` (evaluate: 40 views' `_rgb.png` / `_gt.png`,
+          ms/view and FPS), then at once `apps.metrics` (PSNR, SSIM),
+          `apps.metrics` with VGG16 LPIPS weights the script writes
+          (random), `apps.render_lite` (the tape), `apps.make_ply --frame
+          0` and `apps.view --synthetic --offscreen`; in process the first
+          view from `load_latest_checkpoint` and the viewer's first frame
+          against the apps' PNGs, kernel B against its plain version on
+          both renders' pair rows and kernel A bit for bit on their fills
+          and at the render app's capacity, the metrics against
+          in-process evaluations on the card (the apps' precision flags)
+          and the CPU, the tape, the flat PLY and the viewer's frames
+          (`phase_eval`).
 The line before the last is the kernel table ({"kernels": [...]}: kernels
 A, B and C with their launches summed over the closed loop, perception
-(c)'s and (d)'s loops, train_frame, train and waymo runs (waymo's counted
-in its subprocesses too), B's and C's times from the loop
+(c)'s and (d)'s loops, train_frame, train, waymo and eval runs (waymo's
+and eval's counted in their subprocesses too), B's and C's times from
+the loop
 frame, A's from the trainer's capacity, their errors the largest over
 every shape checked; the five tool kernels with their
 launches in the tools' runs, each counted from zero); the card's name
@@ -125,6 +140,7 @@ the device verdict.
 Needs CUDA: without it (or without the package beside it) the script
 exits non-zero and prints no verdict.
 """
+import contextlib
 import json
 import math
 import os
@@ -1544,16 +1560,27 @@ def phase_train(torch):
     cummax = check_cummax("train", "trainer capacity", rec["opts"].capacity,
                           1)
 
+    import shutil
+    import tempfile
+
     t0 = time.time()
-    cmd = [sys.executable, "-m", "gaussianrpg_tpu_torch.apps.train",
-           "--synthetic", "--iterations", "30"]
-    proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
-                          capture_output=True, text=True, timeout=600)
-    tail = proc.stdout.strip().splitlines()[-1:] or [proc.stderr[-400:]]
-    emit(dict(phase="train", cli=" ".join(cmd[1:]), rc=proc.returncode,
-              seconds=time.time() - t0, last_line=tail[0],
-              ok=proc.returncode == 0))
-    check(proc.returncode == 0, "train", "training CLI failed")
+    out = tempfile.mkdtemp(prefix="train_cli_")
+    try:
+        cmd = [sys.executable, "-m", "gaussianrpg_tpu_torch.apps.train",
+               "--synthetic", "--iterations", "30", "model_path", out]
+        proc = subprocess.run(cmd,
+                              cwd=os.path.dirname(os.path.abspath(__file__)),
+                              capture_output=True, text=True, timeout=600)
+        tail = proc.stdout.strip().splitlines()[-1:] or [proc.stderr[-400:]]
+        ckpt = os.path.exists(os.path.join(out, "trained_model",
+                                           "iteration_30.npz"))
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    ok = proc.returncode == 0 and ckpt
+    emit(dict(phase="train", cli=" ".join(cmd[1:-2]), rc=proc.returncode,
+              seconds=time.time() - t0, last_line=tail[0], checkpoint=ckpt,
+              ok=ok))
+    check(ok, "train", "training CLI failed or wrote no checkpoint")
     return launches, cummax
 
 
@@ -1824,7 +1851,7 @@ def check_recorded(torch, recorded, scene, seed):
     return rec_b, rec_c
 
 
-def phase_waymo(torch):
+def phase_waymo(torch, app_flags):
     """The configured Waymo path end to end through the port's entry
     points, in subprocesses: a scene directory in the converter's layout
     (`waymo_files`), `apps.train --config configs/waymo_149_1cam.yaml`
@@ -1842,8 +1869,10 @@ def phase_waymo(torch):
     scene to the first run's checkpoint (before the densify event); the
     checkpoint's size and save / load seconds; the first train view
     rendered from the checkpoint on the card against the CPU path at a
-    quarter of its size. The directory is deleted at the end. Returns
-    (launches, the kernel checks' records by kernel)."""
+    quarter of its size. Then phase `eval` on the trained scene
+    (`phase_eval`, with the apps' TF32 flags `app_flags`); the directory
+    is deleted at the end. Returns (launches, the kernel checks' records
+    by kernel, phase eval's launches and records)."""
     import re
     import shutil
     import tempfile
@@ -2084,9 +2113,394 @@ def phase_waymo(torch):
                       runs["resume"]["lines"]).get("median_step"),
                   loop_median_frame_ms=loop_ms, checkpoint_gb=nbytes / 1e9,
                   launches=launches, ok=True))
-        return launches, checks
+        return launches, checks, phase_eval(torch, tmp, opts, cfg_obj,
+                                            evals, app_flags)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ------------------------------------------------------------- phase eval
+
+# The apps run in subprocesses with PyTorch's default precision flags
+# (cuDNN convolutions may use TF32); the script runs with TF32 off and
+# sets the apps' flags around its in-process card evaluation.
+METRIC_RTOL = 1e-6    # PSNR, SSIM, LPIPS: app vs in process on the card
+# app vs the CPU path, relative. PSNR read 1.2e-7 on the card. SSIM read
+# 3.25e-5 (1600x1066, SSIM 0.99675): float32 SSIM's own rounding (the
+# window's E[x^2] - mu^2 cancels), which on the CPU lies 1.3e-5-2.8e-5 from
+# a float64 evaluation; TF32 does not reach its depthwise convolution.
+# VGG16 LPIPS read 1.03e-5 (TF32 in its convolutions).
+CPU_RTOL = 1e-5
+SSIM_CPU_RTOL = 1e-4
+LPIPS_CPU_RTOL = 1e-4
+LPIPS_VIEWS = 2       # views of the LPIPS run (the CPU's VGG16 takes ~5 s one)
+EVAL_PSNR_SLACK = 1.0  # dB below the trainer's own evaluation
+
+
+@contextlib.contextmanager
+def tf32_flags(torch, flags):
+    """Run the block with TF32 flags `flags` {"matmul", "cudnn"}."""
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = flags["matmul"]
+    torch.backends.cudnn.allow_tf32 = flags["cudnn"]
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = old
+
+
+def lpips_files(tmp):
+    """VGG16 LPIPS weights from `init_params(VGG16_SPEC, 0)` written in the
+    torchvision `features.{i}` and richzhang `lin{k}.model.1` layouts:
+    (backbone path, lin path)."""
+    from gaussianrpg_tpu_torch.utils.lpips import (VGG16_SPEC, init_params,
+                                                   save_torch_lpips)
+
+    paths = (os.path.join(tmp, "vgg16.pth"), os.path.join(tmp, "lin.pth"))
+    save_torch_lpips(VGG16_SPEC, init_params(VGG16_SPEC, 0), *paths)
+    return paths
+
+
+def run_entries(jobs, timeout=600):
+    """`run_entry` of several (name, module, args) at once, each in its own
+    subprocess: {name: (returncode, stdout lines, launches, seconds)}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futs = {name: pool.submit(run_entry, module, args, timeout)
+                for name, module, args in jobs}
+        return {name: f.result() for name, f in futs.items()}
+
+
+def eval_metrics(torch, pairs, device, lpips_cfg=None):
+    """In-process PSNR / SSIM (and LPIPS) of `pairs` {name: (render, gt)},
+    [3, H, W] arrays as `apps.metrics` loads them: ({name: (psnr,
+    ssim)}, mean LPIPS or None)."""
+    from gaussianrpg_tpu_torch.apps.metrics import lpips_from_files
+    from gaussianrpg_tpu_torch.train.losses import psnr, ssim
+
+    out = {}
+    for n, (p, g) in pairs.items():
+        tp, tg = (torch.as_tensor(p, device=device),
+                  torch.as_tensor(g, device=device))
+        with torch.no_grad():
+            out[n] = (float(psnr(tp, tg)), float(ssim(tp, tg)))
+    lp = None
+    if lpips_cfg:
+        lp = lpips_from_files([p for p, _ in pairs.values()],
+                              [g for _, g in pairs.values()],
+                              lpips_cfg["backbone_path"],
+                              lpips_cfg["lin_path"], "vgg", device=device)
+    return out, lp
+
+
+def rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def check_view_kernels(torch, render, scene):
+    """Run `render()` with the tile stage's blends and kernel A's fills
+    recorded; then kernel B against its plain version (not timed) on the
+    last blend's pair rows (the one that fit), and kernel A bit for bit on
+    every recorded fill. Returns (render()'s value, [B's record, A's])."""
+    from gaussianrpg_tpu_torch.ops import binning, blend, scan
+
+    fills, out = [], []
+    orig_cummax = binning.fused_cummax
+
+    def recording_cummax(xs):
+        fills.append([x.clone() for x in xs])
+        return orig_cummax(xs)
+
+    binning.fused_cummax = recording_cummax
+    try:
+        recorded = recorded_blends(lambda: out.append(render()))
+    finally:
+        binning.fused_cummax = orig_cummax
+    gdata, lists, bg, bkw = recorded[-1]
+    kw = dict(ntx=lists.n_tiles_x, nty=lists.n_tiles_y, tx=lists.tile_x,
+              ty=lists.tile_y, s_ch=bkw["s_ch"])
+    rec_b = check_blend_fwd(torch, blend, gdata, lists, bg, kw, scene,
+                            timed=False)[0]
+    del recorded, gdata, lists
+    errs = [max(int((a - b).abs().max()) for a, b in
+                zip(scan.fused_cummax(xs), scan.fused_cummax_plain(xs)))
+            for xs in fills]
+    # two binnings a render (`render_until_fit` may render more than once)
+    ok = len(fills) >= 2 and len(fills) % 2 == 0 and max(errs) == 0
+    rec_a = dict(phase="eval", kernel="cummax", scene=scene + " fills",
+                 p=[int(xs[0].numel()) for xs in fills], calls=len(fills),
+                 max_abs_err=max(errs), tolerance="exact", ok=ok)
+    emit(rec_a)
+    check(ok, "eval", f"fused_cummax disagrees on the {scene} fills")
+    del fills
+    torch.cuda.empty_cache()
+    return out[0], [rec_b, rec_a]
+
+
+def phase_eval(torch, tmp, opts, cfg_obj, trainer_evals, app_flags):
+    """The evaluation and export apps on phase `waymo`'s trained scene
+    (40 FRONT frames at 1600x1066, checkpoint at iteration 40), through
+    the entry points in subprocesses (launches counted): `apps.render`
+    (evaluate, no video; alone, as it is timed), then at once
+    `apps.metrics`, `apps.metrics` with `eval.lpips` on VGG16 weights the
+    script writes (random: no value is meaningful; on a directory of the
+    first LPIPS_VIEWS views, so that the CPU's VGG16 stays short),
+    `apps.render_lite`, `apps.make_ply --frame 0` and `apps.view
+    --synthetic --offscreen`. Gates: every app exits 0; one `_rgb.png` and
+    one `_gt.png` a view; the first `_rgb.png` equals, within 1/255, the
+    first view rendered in process from `load_latest_checkpoint` on the
+    card and quantized alike; kernels B and A launched by the render app;
+    the metrics equal in-process evaluations of the same PNGs on the card
+    under the apps' precision flags (METRIC_RTOL) and on the CPU (PSNR
+    CPU_RTOL, SSIM SSIM_CPU_RTOL, LPIPS LPIPS_CPU_RTOL); PSNR finite, and
+    on the first four views (those the trainer evaluates) above the
+    trainer's last evaluation less EVAL_PSNR_SLACK dB; the tape's poses
+    and its read-back; the flat PLY's vertices (active background + active
+    actor Gaussians) and its read-back; ten view frames. In process
+    (`check_view_kernels`): kernel B against its plain version and kernel
+    A bit for bit on the render app's first view (its own pair rows and
+    fills, at the capacity the app probed) and on the viewer's first frame
+    (the synthetic street at 512x320, grown as the app grew it; its PNG
+    within 1/255); kernel A timed at the render app's capacity.
+    `trainer_evals`: the trainer CLI's evaluation lines; `app_flags`: the
+    TF32 flags the apps run with.
+    Returns (launches, the kernel checks' records by kernel)."""
+    import re
+
+    import numpy as np
+
+    from gaussianrpg_tpu_torch.apps.metrics import _load
+    from gaussianrpg_tpu_torch.apps.view import render_frame, view_setup
+    from gaussianrpg_tpu_torch.config.config import load_config
+    from gaussianrpg_tpu_torch.data.image_io import read_png
+    from gaussianrpg_tpu_torch.data.ply import read_ply
+    from gaussianrpg_tpu_torch.data.waymo import WaymoScene
+    from gaussianrpg_tpu_torch.models.scene_builder import \
+        build_scene_from_waymo
+    from gaussianrpg_tpu_torch.models.scene_io import (
+        load_gaussians_from_ply, load_latest_checkpoint, search_max_iteration)
+    from gaussianrpg_tpu_torch.render.renderer import (options_from_cfg,
+                                                       probe_scene_capacity,
+                                                       render_scene)
+    from gaussianrpg_tpu_torch.sim.tape import load_tape
+    from gaussianrpg_tpu_torch.utils.visualize import to_hwc8
+
+    t_phase = time.time()
+    model_path = opts[opts.index("model_path") + 1]
+    cfg = ["--config", "configs/waymo_149_1cam.yaml"]
+    launches = {"blend_fwd": 0, "cummax": 0, "blend_bwd": 0}
+    checks = {"blend_fwd": [], "cummax": []}
+
+    def count(ln):
+        for k in launches:
+            launches[k] += ln[k]
+
+    rc, lines, ln, secs = run_entry(
+        "gaussianrpg_tpu_torch.apps.render",
+        cfg + opts + ["render.save_video", "False"])
+    count(ln)
+    d = os.path.join(model_path, "evaluate_train")
+    files = sorted(os.listdir(d)) if os.path.isdir(d) else []
+    names = [f[:-8] for f in files if f.endswith("_rgb.png")]
+    n_gt = sum(f.endswith("_gt.png") for f in files)
+    timing = next((ln_ for ln_ in lines if ln_.startswith("train: ")), "")
+    m = re.match(r"train: (\d+) views, ([0-9.]+) ms/view \(([0-9.]+) FPS",
+                 timing)
+    caps = [int(x) for ln_ in lines for x in
+            re.findall(r"^pair capacity right-sized to (\d+)", ln_)]
+    n_cams = WAYMO_FRAMES
+    ok = (rc == 0 and len(names) == n_cams and n_gt == n_cams
+          and not os.path.isdir(os.path.join(model_path, "evaluate_test"))
+          and m is not None and ln["blend_fwd"] >= n_cams
+          and ln["cummax"] >= 2 * n_cams)
+    emit(dict(phase="eval", step="render", rc=rc, seconds=secs,
+              views=len(names), gt=n_gt, ms_per_view=float(m.group(2))
+              if m else None, fps=float(m.group(3)) if m else None,
+              capacity=caps, launches=ln, tail=lines[-4:], ok=ok))
+    check(ok, "eval", "the render app failed or wrote the wrong files")
+
+    lp_model = os.path.join(tmp, "lpips_model")
+    os.makedirs(os.path.join(lp_model, "evaluate_train"))
+    for n in names[:LPIPS_VIEWS]:
+        for suffix in ("_rgb.png", "_gt.png"):
+            os.symlink(os.path.join(d, n + suffix),
+                       os.path.join(lp_model, "evaluate_train", n + suffix))
+    backbone, lin = lpips_files(tmp)
+    lp_opts = ["model_path", lp_model, "eval.lpips.backbone_path", backbone,
+               "eval.lpips.lin_path", lin, "eval.lpips.net_type", "vgg"]
+    tape = os.path.join(tmp, "eval_tape.json")
+    ply = os.path.join(tmp, "flat_frame0.ply")
+    view_dir = os.path.join(tmp, "view")
+    runs = run_entries([
+        ("metrics", "gaussianrpg_tpu_torch.apps.metrics", cfg + opts),
+        ("metrics_lpips", "gaussianrpg_tpu_torch.apps.metrics",
+         cfg + opts + lp_opts),
+        ("render_lite", "gaussianrpg_tpu_torch.apps.render_lite",
+         cfg + ["--out", tape] + opts),
+        ("make_ply", "gaussianrpg_tpu_torch.apps.make_ply",
+         cfg + ["--frame", "0", "--out", ply] + opts),
+        ("view", "gaussianrpg_tpu_torch.apps.view",
+         ["--synthetic", "--offscreen", "--out", view_dir])])
+    for name, (rc, lines, ln, secs) in runs.items():
+        count(ln)
+        emit(dict(phase="eval", step=name, rc=rc, seconds=secs, launches=ln,
+                  tail=lines[-3:], ok=rc == 0))
+        check(rc == 0, "eval", f"{name} failed")
+
+    # in process: the first view from `load_latest_checkpoint`, its pair
+    # rows and kernel A's fills recorded
+    scene = WaymoScene(cfg_obj.source_path,
+                       selected_frames=cfg_obj.data.selected_frames or None,
+                       cameras=tuple(cfg_obj.data.cameras),
+                       resolution=cfg_obj.resolution, load_images=False)
+    built, meta, arrays, _ = build_scene_from_waymo(scene, cfg_obj,
+                                                    device="cuda")
+    ckpt_dir = os.path.join(model_path, "trained_model")
+    it = search_max_iteration(ckpt_dir)
+    trained = load_latest_checkpoint(ckpt_dir, built)
+    with np.load(os.path.join(ckpt_dir, f"iteration_{it}.npz")) as f:
+        sh = int(f["__sh_degree__"])
+    del built
+    cams = [c for c, _ in scene.build_cameras("train", device="cuda")]
+    sized = probe_scene_capacity(trained, meta, arrays, cams,
+                                 active_sh_degree=sh,
+                                 options=options_from_cfg(cfg_obj.render),
+                                 slack=1.15)
+    res, recs = check_view_kernels(torch, lambda: render_scene(
+        trained, meta, arrays, cams[0], active_sh_degree=sh, options=sized,
+        device="cuda"), "eval render app first view")
+    first = read_png(os.path.join(d, names[0] + "_rgb.png")).astype(int)
+    img_err = int(np.abs(first - to_hwc8(res.rgb).astype(int)).max())
+    ok = (names[0] == f"{int(cams[0].frame):06d}_0" and img_err <= 1
+          and sized.capacity in caps and not bool(res.overflow))
+    emit(dict(phase="eval", step="first view", view=names[0],
+              max_abs_err_of_255=img_err, capacity=sized.capacity,
+              pairs=int(res.n_pairs), ok=ok))
+    check(ok, "eval", "the render app's first view differs from the "
+          "checkpoint's render in process")
+    del res
+    for rec in recs:
+        checks[rec["kernel"]].append(rec)
+
+    # the viewer's first frame in process, grown as the app grows it
+    vm, vmeta, varr, vcams, vopts = view_setup(
+        load_config(None, [], mode="trajectory"), True, "cuda")
+    start_cap = vopts.capacity
+    (vres, vopts), recs = check_view_kernels(
+        torch, lambda: render_frame(vm, vmeta, varr, vcams[0], vopts, "cuda"),
+        "eval viewer first frame")
+    # the capacity the app grew to before it printed its first frame
+    vlines = runs["view"][1]
+    before = vlines[:next((i for i, ln_ in enumerate(vlines)
+                           if ln_.startswith("frame 0:")), 0)]
+    grown = [int(x) for ln_ in before for x in re.findall(
+        r"pair overflow: growing capacity to (\d+)", ln_)]
+    view0 = read_png(os.path.join(view_dir, "000000.png")).astype(int)
+    img_err = int(np.abs(view0 - to_hwc8(vres.rgb).astype(int)).max())
+    ok = (img_err <= 1 and not bool(vres.overflow)
+          and vopts.capacity == (grown[-1] if grown else start_cap))
+    emit(dict(phase="eval", step="viewer first frame",
+              max_abs_err_of_255=img_err, capacity=vopts.capacity,
+              start_capacity=start_cap, app_growth_before_frame0=grown,
+              pairs=int(vres.n_pairs),
+              size=f"{vcams[0].width}x{vcams[0].height}", ok=ok))
+    check(ok, "eval", "the viewer's first frame differs from its render "
+          "in process, or settled on another capacity")
+    del vm, varr, vres
+    for rec in recs:
+        checks[rec["kernel"]].append(rec)
+    torch.cuda.empty_cache()
+    checks["cummax"].append(check_cummax(
+        "eval", "eval render app capacity", sized.capacity, 1))
+
+    # the metrics: the apps' files against in-process evaluations
+    with open(os.path.join(model_path, "results_train.json")) as f:
+        results = json.load(f)
+    with open(os.path.join(model_path, "per_view_train.json")) as f:
+        per_view = json.load(f)
+    with open(os.path.join(lp_model, "results_train.json")) as f:
+        lp_results = json.load(f)
+    lp_cfg = dict(backbone_path=backbone, lin_path=lin)
+    pairs = {n: (_load(os.path.join(d, n + "_rgb.png")),
+                 _load(os.path.join(d, n + "_gt.png"))) for n in names}
+    lp_pairs = {n: pairs[n] for n in names[:LPIPS_VIEWS]}
+
+    def both(device):
+        return (eval_metrics(torch, pairs, device)[0],
+                eval_metrics(torch, lp_pairs, device, lp_cfg)[1])
+
+    with tf32_flags(torch, app_flags):
+        card, lp_card = both("cuda")
+    cpu, lp_cpu = both("cpu")
+
+    app = {n: (per_view[n]["psnr"], per_view[n]["ssim"]) for n in names}
+
+    def worst(got, ref, tols):
+        errs = [max(rel(got[n][i], ref[n][i]) for n in names) for i in (0, 1)]
+        return dict(psnr=errs[0], ssim=errs[1], ok=errs[0] <= tols[0]
+                    and errs[1] <= tols[1], tolerance=tols)
+
+    errors = dict(
+        app_vs_card=worst(app, card, (METRIC_RTOL,) * 2),
+        app_vs_cpu=worst(app, cpu, (CPU_RTOL, SSIM_CPU_RTOL)),
+        lpips_app_vs_card=rel(lp_results["lpips"], lp_card),
+        lpips_app_vs_cpu=rel(lp_results["lpips"], lp_cpu))
+    lp_ok = (errors["lpips_app_vs_card"] <= METRIC_RTOL
+             and errors["lpips_app_vs_cpu"] <= LPIPS_CPU_RTOL)
+    evals = [float(x) for x in re.findall(
+        r"\[eval train\] iter \d+: psnr ([0-9.]+)",
+        "\n".join(trainer_evals))]
+    # the trainer evaluates the first four train views, unquantized
+    floor = (evals[-1] if evals else math.inf) - EVAL_PSNR_SLACK
+    first4 = float(np.mean([app[n][0] for n in names[:4]]))
+    ok = (results["n_views"] == n_cams and "lpips" not in results
+          and lp_results["n_views"] == LPIPS_VIEWS
+          and results["psnr"] == float(np.mean([v[0] for v in app.values()]))
+          and results["ssim"] == float(np.mean([v[1] for v in app.values()]))
+          and math.isfinite(results["psnr"]) and first4 > floor and lp_ok
+          and errors["app_vs_card"]["ok"] and errors["app_vs_cpu"]["ok"])
+    emit(dict(phase="eval", step="metrics", psnr=results["psnr"],
+              ssim=results["ssim"], n_views=results["n_views"],
+              psnr_first4=first4, psnr_floor=floor, trainer_eval_psnr=evals,
+              rel_errors=errors, lpips=dict(
+                  app=lp_results["lpips"], card=lp_card, cpu=lp_cpu,
+                  views=LPIPS_VIEWS,
+                  tolerance=dict(app_vs_card=METRIC_RTOL,
+                                 app_vs_cpu=LPIPS_CPU_RTOL),
+                  weights="init_params(VGG16_SPEC, 0): random"),
+              app_flags=app_flags, ok=ok))
+    check(ok, "eval", "the metrics app disagrees with the in-process "
+          "evaluation, or PSNR fell below the trainer's evaluation")
+
+    # the tape, the flat PLY, the viewer's frames
+    frames = load_tape(tape)["frames"]
+    want_poses = (n_cams - 1) * round(cfg_obj.sim.dynamic_freq
+                                      / cfg_obj.sim.image_freq) + 1
+    vert = read_ply(ply)["vertex"]
+    n_flat = int(trained.bkgd_aux.n_active) + int(
+        trained.actors_aux.n_active[:meta.num_actors].sum())
+    params, aux = load_gaussians_from_ply(ply, device="cuda")
+    view_files = sorted(os.listdir(view_dir))
+    view_img = read_png(os.path.join(view_dir, view_files[0]))
+    ok = (len(frames) == want_poses and [f["id"] for f in frames]
+          == list(range(want_poses))
+          and len(vert) == n_flat == int(aux.n_active)
+          and bool(torch.isfinite(params.xyz[:n_flat]).all())
+          and view_files == [f"{i:06d}.png" for i in range(10)]
+          and view_img.shape == (320, 512, 3))
+    emit(dict(phase="eval", step="exports", tape_poses=len(frames),
+              tape_poses_expected=want_poses, ply_vertices=len(vert),
+              active_gaussians=n_flat, view_frames=len(view_files),
+              view_size=list(view_img.shape), ok=ok))
+    check(ok, "eval", "tape, flat PLY or viewer frames are wrong")
+    del trained, params, aux
+    torch.cuda.empty_cache()
+    emit(dict(phase="eval", seconds=time.time() - t_phase,
+              launches=launches, ok=True))
+    return launches, checks
 
 
 def main():
@@ -2106,6 +2520,8 @@ def main():
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
         return 1
+    app_flags = dict(matmul=torch.backends.cuda.matmul.allow_tf32,
+                     cudnn=torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
@@ -2133,8 +2549,10 @@ def main():
         runs.append(phase_perception(torch))
         train_launches, c = phase_train(torch)
         runs.append(train_launches)
-        waymo_launches, waymo = phase_waymo(torch)
+        waymo_launches, waymo, (eval_launches, ev) = phase_waymo(
+            torch, app_flags)
         runs.append(waymo_launches)
+        runs.append(eval_launches)
     except PhaseFailed as e:
         print(f"chip_smoke: {e}", file=sys.stderr)
         return 1
@@ -2143,10 +2561,10 @@ def main():
     # the trainer's capacity; errors over every shape checked
     errs_b = max(r["max_abs_err"]
                  for r in [b, *kout["blend_fwd"].values(),
-                           *waymo["blend_fwd"]])
+                           *waymo["blend_fwd"], *ev["blend_fwd"]])
     errs_c = max(r["max_abs_err"]
                  for r in [a_loop, c, *kout["cummax"].values(),
-                           *waymo["cummax"]])
+                           *waymo["cummax"], *ev["cummax"]])
     errs_d = max(r["max_abs_err"]
                  for r in [d, *kout["blend_bwd"].values(),
                            *waymo["blend_bwd"]])

@@ -15,7 +15,8 @@ flags go before the `KEY VALUE` overrides.
     python -m gaussianrpg_tpu_torch.apps.train --synthetic --iterations 200
 
 trains the synthetic street scene (also when `source_path` is empty),
-without checkpoints. `--mesh` (multi-device training) is not ported yet.
+with the same resume, checkpoints and PLYs. `--mesh` (multi-device
+training) is not ported yet.
 
 `run_training` is the loop itself (overflow discard-and-retry, densify and
 prune, capacity growth, opacity reset, SH-degree upgrade, evaluation, the
@@ -295,21 +296,32 @@ def run_training(models, meta, arrays, cam_gt, ocfg: OptimConfig,
     return state, rec
 
 
+def synthetic_scene(device=None, n_background=5000, bkgd_capacity=16384,
+                    sh_degree=SH_DEGREE, fourier_dim=FOURIER_DIM):
+    """The JAX trainer's synthetic scene (`train.py:200-205`): by default
+    5000 background Gaussians (capacity 16384) and 2 actors (1024 each)
+    over 10 frames. Returns (models, meta, arrays)."""
+    from ..utils.synthetic import make_scene
+
+    return make_scene(
+        n_background=n_background, bkgd_capacity=bkgd_capacity, n_actors=2,
+        actor_capacity=1024, n_frames=10, sh_degree=sh_degree,
+        fourier_dim=fourier_dim, device=resolve_device(device))
+
+
 def synthetic_setup(device=None, n_background=5000, bkgd_capacity=16384,
-                    width=256, height=160):
-    """The JAX trainer's synthetic scene and views: by default 5000
-    background Gaussians (capacity 16384) and 2 actors (1024 each) over
-    10 frames at 256x160 (`chip_smoke.py` and `profile_trace` ask for
-    600k at 1600x1066); ground truth is the initial render, then the
+                    width=256, height=160, sh_degree=SH_DEGREE,
+                    fourier_dim=FOURIER_DIM):
+    """The JAX trainer's synthetic scene (`synthetic_scene`) and views: 10
+    frames at 256x160 by default (`chip_smoke.py` and `profile_trace` ask
+    for 600k at 1600x1066); ground truth is the initial render, then the
     background's DC colours are perturbed. Returns (models, meta, arrays,
     cam_gt, opts)."""
-    from ..utils.synthetic import make_cameras, make_scene
+    from ..utils.synthetic import make_cameras
 
     dev = resolve_device(device)
-    models, meta, arrays = make_scene(
-        n_background=n_background, bkgd_capacity=bkgd_capacity, n_actors=2,
-        actor_capacity=1024, n_frames=10, sh_degree=SH_DEGREE,
-        fourier_dim=FOURIER_DIM, device=dev)
+    models, meta, arrays = synthetic_scene(dev, n_background, bkgd_capacity,
+                                           sh_degree, fourier_dim)
     cams = make_cameras(n_frames=10, width=width, height=height, device=dev)
     opts = _autosize(RenderOptions(), cams, models, meta, arrays)
     gts = [render_scene(models, meta, arrays, c,
@@ -456,10 +468,7 @@ def main(argv=None):
     test_iters = set(cfg.train.get("test_iterations", []))
     t0 = time.time()
     if args.synthetic or not cfg.source_path:
-        models, meta, arrays, cam_gt, opts = synthetic_setup(dev)
-        state, rec = run_training(models, meta, arrays, cam_gt, ocfg, opts,
-                                  iters, device=dev, seed=cfg.seed,
-                                  test_iters=test_iters)
+        state, rec = train_synthetic(cfg, ocfg, iters, test_iters, dev)
     else:
         state, rec = train_waymo(cfg, ocfg, iters, test_iters, dev)
     losses = rec["loss"]
@@ -499,22 +508,14 @@ def waymo_setup(cfg, dev):
     return scene, models, meta, arrays, actor_names, cam_gt, opts
 
 
-def train_waymo(cfg, ocfg: OptimConfig, iters: int, test_iters, dev):
-    """The Waymo branch of `main`: scene, batches, resume, training with
-    checkpoints at `checkpoint_iterations` and composite PLYs at
-    `save_iterations` (each with the last iteration)."""
+def checkpoint_writer(cfg, iters: int, actor_names=None):
+    """The per-iteration hook of both branches of `main`: a checkpoint at
+    `checkpoint_iterations` and a composite PLY at `save_iterations`, each
+    with the last iteration (`train.py:495-504`)."""
     from ..models.scene_io import save_checkpoint, save_composite_ply
 
-    scene, models, meta, arrays, actor_names, cam_gt, opts = waymo_setup(
-        cfg, dev)
-    test_cam_gt = images_on(scene.build_cameras("test", device=dev), dev)
-    batches = view_batches(scene, cam_gt, cfg, dev)
-    cam_gt = images_on(cam_gt, dev)
-    state, start_it, sh = resume(cfg, init_train_state(models))
-    active_sh = min(sh, meta.bkgd_sh_degree) if start_it > 0 else 0
     os.makedirs(cfg.trained_model_dir, exist_ok=True)
     os.makedirs(cfg.point_cloud_dir, exist_ok=True)
-    writer = _make_writer(os.path.join(cfg.model_path, "tensorboard"))
     ckpt_iters = set(cfg.train.checkpoint_iterations) | {iters}
     ply_iters = set(cfg.train.save_iterations) | {iters}
 
@@ -528,12 +529,51 @@ def train_waymo(cfg, ocfg: OptimConfig, iters: int, test_iters, dev):
             os.makedirs(ply_dir, exist_ok=True)
             save_composite_ply(os.path.join(ply_dir, "point_cloud.ply"),
                                state.models, actor_names)
+    return save
 
+
+def _resumed(cfg, models, meta):
+    """(state, start iteration, active SH degree) after `resume`."""
+    state, start_it, sh = resume(cfg, init_train_state(models))
+    return state, start_it, (min(sh, meta.bkgd_sh_degree) if start_it > 0
+                             else 0)
+
+
+def train_synthetic(cfg, ocfg: OptimConfig, iters: int, test_iters, dev):
+    """The synthetic branch of `main` (`train.py:200-226`): the scene at
+    the config's SH degree and Fourier size, resume, and the checkpoints
+    and PLYs of `checkpoint_writer`."""
+    gcfg = cfg.model.gaussian
+    models, meta, arrays, cam_gt, opts = synthetic_setup(
+        dev, sh_degree=gcfg.sh_degree,
+        fourier_dim=gcfg.get("fourier_dim", FOURIER_DIM))
+    state, start_it, active_sh = _resumed(cfg, models, meta)
+    writer = _make_writer(os.path.join(cfg.model_path, "tensorboard"))
+    state, rec = run_training(
+        models, meta, arrays, cam_gt, ocfg, opts, iters, device=dev,
+        seed=cfg.seed, test_iters=test_iters, state=state, start_it=start_it,
+        active_sh=active_sh, writer=writer,
+        on_step_end=checkpoint_writer(cfg, iters))
+    if writer is not None:
+        writer.close()
+    return state, rec
+
+
+def train_waymo(cfg, ocfg: OptimConfig, iters: int, test_iters, dev):
+    """The Waymo branch of `main`: scene, batches, resume, training with
+    the checkpoints and PLYs of `checkpoint_writer`."""
+    scene, models, meta, arrays, actor_names, cam_gt, opts = waymo_setup(
+        cfg, dev)
+    test_cam_gt = images_on(scene.build_cameras("test", device=dev), dev)
+    batches = view_batches(scene, cam_gt, cfg, dev)
+    cam_gt = images_on(cam_gt, dev)
+    state, start_it, active_sh = _resumed(cfg, models, meta)
+    writer = _make_writer(os.path.join(cfg.model_path, "tensorboard"))
     state, rec = run_training(
         models, meta, arrays, cam_gt, ocfg, opts, iters, device=dev,
         seed=cfg.seed, test_iters=test_iters, batches=batches, state=state,
         start_it=start_it, active_sh=active_sh, test_cam_gt=test_cam_gt,
-        writer=writer, on_step_end=save)
+        writer=writer, on_step_end=checkpoint_writer(cfg, iters, actor_names))
     if writer is not None:
         writer.close()
     return state, rec

@@ -9,6 +9,11 @@ with Pillow (`gaussianrpg_tpu/data/waymo.py`, `data/lidar_init.py`). Here:
                          1, 2 and 4 bits), non-interlaced, all five row
                          filters. `read_png` gives what
                          `np.asarray(PIL.Image.open(path))` gives.
+  read_png_rgba          the same PNGs as `Image.open(path).convert("RGBA")`
+                         gives them: grey and RGB widened, palette indices
+                         looked up in PLTE, alpha from the image, from
+                         tRNS (per palette entry, or the one transparent
+                         grey or RGB value) or 255.
   read_image             PNG by `read_png`; any other format (the JPEGs of
                          `apps/waymo_converter.py`) through Pillow where it
                          is installed, else an error naming the file.
@@ -123,18 +128,21 @@ def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
     return pad[1:, bpp:bpp + stride].astype(np.uint8)
 
 
-def read_png(path: str) -> np.ndarray:
-    """The pixels of a PNG as `np.asarray(PIL.Image.open(path))` gives
-    them: [H, W] grey or palette indices, [H, W, 2] grey+alpha, [H, W, 3]
-    RGB, [H, W, 4] RGBA, uint8."""
+def _decode_png(path: str):
+    """(pixels as `read_png` gives them, colour type, PLTE bytes or None,
+    tRNS bytes or None)."""
     with open(path, "rb") as f:
         data = f.read()
-    hdr, idat = None, []
+    hdr, idat, plte, trns = None, [], None, None
     for kind, body in _chunks(data, path):
         if kind == b"IHDR":
             hdr = _header(body, path)
         elif kind == b"IDAT":
             idat.append(body)
+        elif kind == b"PLTE":
+            plte = body
+        elif kind == b"tRNS":
+            trns = body
     if hdr is None or not idat:
         raise ImageReadError(f"{path}: no IHDR or IDAT chunk")
     w, h, depth, ctype = hdr
@@ -149,7 +157,48 @@ def read_png(path: str) -> np.ndarray:
         bits = np.unpackbits(px, axis=1).reshape(h, -1, depth)
         weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
         px = (bits * weights).sum(-1).astype(np.uint8)[:, :w]
-    return px.reshape(h, w, ch) if ch > 1 else px.reshape(h, w)
+    px = px.reshape(h, w, ch) if ch > 1 else px.reshape(h, w)
+    return px, ctype, plte, trns
+
+
+def read_png(path: str) -> np.ndarray:
+    """The pixels of a PNG as `np.asarray(PIL.Image.open(path))` gives
+    them: [H, W] grey or palette indices, [H, W, 2] grey+alpha, [H, W, 3]
+    RGB, [H, W, 4] RGBA, uint8."""
+    return _decode_png(path)[0]
+
+
+def read_png_rgba(path: str) -> np.ndarray:
+    """[H, W, 4] uint8: the PNG as `PIL.Image.open(path).convert("RGBA")`
+    gives it."""
+    px, ctype, plte, trns = _decode_png(path)
+    h, w = px.shape[:2]
+    out = np.full((h, w, 4), 255, np.uint8)
+    if ctype == 3:
+        if plte is None:
+            raise ImageReadError(f"{path}: palette image without PLTE")
+        table = np.zeros((256, 4), np.uint8)
+        table[:, 3] = 255
+        pal = np.frombuffer(plte, np.uint8).reshape(-1, 3)[:256]
+        table[:len(pal), :3] = pal
+        if trns is not None:
+            alpha = np.frombuffer(trns, np.uint8)[:256]
+            table[:len(alpha), 3] = alpha
+        return table[px]
+    if ctype in (0, 4):
+        grey = px if ctype == 0 else px[..., 0]
+        out[..., :3] = grey[..., None]
+        if ctype == 4:
+            out[..., 3] = px[..., 1]
+        elif trns is not None and len(trns) >= 2:
+            out[..., 3] = np.where(grey == struct.unpack(">H", trns[:2])[0],
+                                   0, 255)
+        return out
+    out[..., :px.shape[2]] = px
+    if ctype == 2 and trns is not None and len(trns) >= 6:
+        key = np.array(struct.unpack(">HHH", trns[:6]))
+        out[..., 3] = np.where((px == key).all(-1), 0, 255)
+    return out
 
 
 def write_png(path: str, img: np.ndarray, level: int = 6) -> None:

@@ -1,8 +1,9 @@
 """The port's training and simulation CLIs on a Waymo scene directory
 (`torch_parity.write_test_scene`), held against the JAX package's files
 and apps on the CPU: the trainer writes a checkpoint the JAX package
-reads and resumes from it; the simulator, on a checkpoint the JAX package
-wrote, prints the JAX app's verdict line; `--mesh` is refused."""
+reads and resumes from it, with a config and with `--synthetic`; the
+simulator, on a checkpoint the JAX package wrote, prints the JAX app's
+verdict line; `--mesh` is refused."""
 import json
 import shutil
 
@@ -181,6 +182,47 @@ def test_simulate_cli_matches_jax_app(scene, tmp_path, capsys):
         jline["verdict"], jline["ticks"], jline["frames"])
     assert tline["min_gt_distance"] == pytest.approx(
         jline["min_gt_distance"], abs=1e-2)
+
+
+def test_synthetic_train_cli_writes_checkpoints_and_resumes(tmp_path,
+                                                           capsys):
+    """`apps.train.main --synthetic` writes the JAX app's files
+    (`train.py:495-504`): `iteration_2.npz`, which the JAX package's
+    `load_checkpoint` reads into the JAX trainer's synthetic scene
+    (`make_scene` at 5000 / 16384, 2 actors of 1024, SH 3, Fourier 1), and
+    the composite PLY with one element per sub-model; a second call to 3
+    iterations resumes from it (`train.py:292-305`)."""
+    from gaussianrpg_tpu.utils.synthetic import make_scene
+
+    from gaussianrpg_tpu_torch.data.ply import read_ply
+
+    out = tmp_path / "syn"
+    state, rec = tapp.main(["--device", "cpu", "--synthetic",
+                            "--iterations", "2", "model_path", str(out)])
+    assert len(rec["loss"]) == 2
+    ckpt = out / "trained_model" / "iteration_2.npz"
+    ply = out / "point_cloud" / "iteration_2" / "point_cloud.ply"
+    assert ckpt.exists() and ply.exists()
+    assert sorted(read_ply(str(ply))) == ["vertex_background",
+                                          "vertex_obj_000", "vertex_obj_001"]
+    jm, _, _ = make_scene(n_background=5000, bkgd_capacity=16384,
+                          n_actors=2, actor_capacity=1024, n_frames=10,
+                          sh_degree=3, fourier_dim=1)
+    jstate, step, sh = jio.load_checkpoint(str(ckpt),
+                                           jtr.init_train_state(jm))
+    assert (step, sh) == (2, 0) and int(jstate.step) == 2
+    np.testing.assert_array_equal(
+        np.asarray(jstate.models.background.features_dc),
+        state.models.background.features_dc.numpy())
+    np.testing.assert_array_equal(np.asarray(jstate.adam.nu["actors"].xyz),
+                                  state.adam.nu["actors"].xyz.numpy())
+
+    capsys.readouterr()
+    state2, rec2 = tapp.main(["--device", "cpu", "--synthetic",
+                              "--iterations", "3", "model_path", str(out)])
+    assert "resumed from iteration 2" in capsys.readouterr().out
+    assert len(rec2["loss"]) == 1 and state2.step == 3
+    assert (out / "trained_model" / "iteration_3.npz").exists()
 
 
 def test_train_cli_refuses_mesh():

@@ -2,8 +2,10 @@
 versions (kernel A: fused cummax, kernel B: blend forward, kernel C: blend
 backward, and the kernels of the tools in `gaussianrpg_tpu_torch/tools`),
 plus one frame and its gradients through `rasterize` on the card against
-the CPU path, and YOLOv5 perception (the graph against the CPU path, the
-fused step against the unfused detector).
+the CPU path, YOLOv5 perception (the graph against the CPU path, the
+fused step against the unfused detector), and the evaluation apps (the
+render app's PNGs, PSNR, SSIM and LPIPS on the card against the CPU
+path).
 
 They skip without a CUDA card. This file imports neither JAX nor the JAX
 package, so on a machine with the card and no JAX it runs alone:
@@ -749,3 +751,59 @@ def test_fused_step_waits_for_the_card_only_at_its_copy(cuda, tx, ty, emit,
     assert not syncs(seen), syncs(seen)
     assert syncs(control)
     np.testing.assert_array_equal(cand.cpu().numpy(), first)
+
+
+@pytest.mark.cuda
+def test_render_app_on_card_matches_cpu(cuda, tmp_path):
+    """`apps.render` on the synthetic scene (as built: no checkpoint) on
+    the card and on the CPU: the same files, PNGs within 1/255; both
+    launch their kernels only on the card."""
+    import os
+
+    from gaussianrpg_tpu_torch.apps import render
+    from gaussianrpg_tpu_torch.data.image_io import read_png
+
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        out = tmp_path / dev
+        before = blend.launches
+        render.main(["--device", dev, "model_path", str(out),
+                     "render.save_video", "False"])
+        outs[dev] = (out / "evaluate_train", blend.launches - before)
+    assert outs["cuda"][1] == 10 and outs["cpu"][1] == 0
+    names = sorted(os.listdir(outs["cuda"][0]))
+    assert names == sorted(os.listdir(outs["cpu"][0])) and len(names) == 10
+    for n in names:
+        a = read_png(str(outs["cuda"][0] / n)).astype(int)
+        b = read_png(str(outs["cpu"][0] / n)).astype(int)
+        assert np.abs(a - b).max() <= 1, n
+
+
+@pytest.mark.cuda
+def test_metrics_and_lpips_on_card_match_cpu(cuda, tmp_path):
+    """`apps.metrics.evaluate_dir` with VGG16 LPIPS weights (random, in
+    the torchvision / richzhang layouts) on the card against the CPU path,
+    TF32 off: PSNR and SSIM within 1e-5, LPIPS within 1e-4, relative."""
+    from gaussianrpg_tpu_torch.apps.metrics import evaluate_dir
+    from gaussianrpg_tpu_torch.data.image_io import write_png
+    from gaussianrpg_tpu_torch.utils.lpips import (VGG16_SPEC, init_params,
+                                                   save_torch_lpips)
+
+    rng = np.random.default_rng(5)
+    d = tmp_path / "evaluate_train"
+    d.mkdir()
+    for n in ("000", "001"):
+        a = rng.integers(0, 255, (96, 128, 3), dtype=np.uint8)
+        b = np.clip(a + rng.integers(-20, 20, a.shape), 0,
+                    255).astype(np.uint8)
+        write_png(str(d / f"{n}_rgb.png"), a)
+        write_png(str(d / f"{n}_gt.png"), b)
+    save_torch_lpips(VGG16_SPEC, init_params(VGG16_SPEC, 0),
+                     str(tmp_path / "vgg.pth"), str(tmp_path / "lin.pth"))
+    cfg = {"backbone_path": str(tmp_path / "vgg.pth"),
+           "lin_path": str(tmp_path / "lin.pth"), "net_type": "vgg"}
+    got, _ = evaluate_dir(str(d), cfg, device="cuda")
+    ref, _ = evaluate_dir(str(d), cfg, device="cpu")
+    assert got["n_views"] == ref["n_views"] == 2
+    for k, rtol in (("psnr", 1e-5), ("ssim", 1e-5), ("lpips", 1e-4)):
+        assert got[k] == pytest.approx(ref[k], rel=rtol), k
