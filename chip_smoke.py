@@ -126,11 +126,30 @@ Phases, one JSON line each (any failure ends the run with exit code 1):
           and at the render app's capacity, the metrics against
           in-process evaluations on the card (the apps' precision flags)
           and the CPU, the tape, the flat PLY and the viewer's frames
-          (`phase_eval`).
+          (`phase_eval`);
+  prep    the data-preparation toolchain at one Waymo segment's widths
+          (five cameras, 1920x1280 and 1920x886; a 64x2650 TOP LiDAR and
+          four 200x600 short-range ones; 10 frames of ~198): phase
+          waymo's street rendered on the card at every camera pose,
+          JPEG-encoded at quality 95 and written with the LiDAR returns
+          and two cars' labels as a TFRecord (`utils/waymo_record`);
+          `apps.waymo_converter`, `generate_lidar_depth` and
+          `generate_sky_mask` in subprocesses; the 50 converted JPEGs
+          decoded by the port (`image_io.read_jpeg`, no Pillow; PSNR
+          against the rendered frames above PREP_PSNR_FLOOR, ms per
+          image);
+          `apps.train --config configs/waymo_149_1cam.yaml` on the
+          converted scene for a few steps; in process the first train
+          view of the built scene at its pose and moved off it, and of the
+          checkpoint (the pose and training gates), kernels B and A
+          against their plain versions on the checkpoint view's pair rows
+          and fills, and B, C and A on the built scene's first train step
+          (`phase_prep`).
 The line before the last is the kernel table ({"kernels": [...]}: kernels
 A, B and C with their launches summed over the closed loop, perception
-(c)'s and (d)'s loops, train_frame, train, waymo and eval runs (waymo's
-and eval's counted in their subprocesses too), B's and C's times from
+(c)'s and (d)'s loops, train_frame, train, waymo, eval and prep runs
+(waymo's, eval's and prep's counted in their subprocesses too), B's and
+C's times from
 the loop
 frame, A's from the trainer's capacity, their errors the largest over
 every shape checked; the five tool kernels with their
@@ -2200,12 +2219,10 @@ def rel(a, b):
     return abs(a - b) / max(abs(b), 1e-30)
 
 
-def check_view_kernels(torch, render, scene):
-    """Run `render()` with the tile stage's blends and kernel A's fills
-    recorded; then kernel B against its plain version (not timed) on the
-    last blend's pair rows (the one that fit), and kernel A bit for bit on
-    every recorded fill. Returns (render()'s value, [B's record, A's])."""
-    from gaussianrpg_tpu_torch.ops import binning, blend, scan
+def recorded_kernels(run):
+    """Run `run()` with the tile stage's blends (`recorded_blends`) and
+    kernel A's fills recorded: (run()'s value, blends, fills)."""
+    from gaussianrpg_tpu_torch.ops import binning
 
     fills, out = [], []
     orig_cummax = binning.fused_cummax
@@ -2216,28 +2233,54 @@ def check_view_kernels(torch, render, scene):
 
     binning.fused_cummax = recording_cummax
     try:
-        recorded = recorded_blends(lambda: out.append(render()))
+        recorded = recorded_blends(lambda: out.append(run()))
     finally:
         binning.fused_cummax = orig_cummax
+    return out[0], recorded, fills
+
+
+def check_fills(fills, phase, scene):
+    """Kernel A bit for bit against its plain version on every fill of
+    one or more renders (two binnings a render; `render_until_fit` may
+    render more than once). Returns its record."""
+    from gaussianrpg_tpu_torch.ops import scan
+
+    errs = [max(int((a - b).abs().max()) for a, b in
+                zip(scan.fused_cummax(xs), scan.fused_cummax_plain(xs)))
+            for xs in fills]
+    ok = len(fills) >= 2 and len(fills) % 2 == 0 and max(errs) == 0
+    rec = dict(phase=phase, kernel="cummax", scene=scene + " fills",
+               p=[int(xs[0].numel()) for xs in fills], calls=len(fills),
+               max_abs_err=max(errs, default=None), tolerance="exact", ok=ok)
+    emit(rec)
+    check(ok, phase, f"fused_cummax disagrees on the {scene} fills")
+    return rec
+
+
+def check_view_kernels(torch, render, scene):
+    """Run `render()` with the tile stage's blends and kernel A's fills
+    recorded, then `check_recorded_view` on them. Returns (render()'s
+    value, [B's record, A's])."""
+    out, recorded, fills = recorded_kernels(render)
+    return out, check_recorded_view(torch, recorded, fills, scene, "eval")
+
+
+def check_recorded_view(torch, recorded, fills, scene, phase):
+    """Kernel B against its plain version (not timed) on the last
+    recorded blend's pair rows (the one that fit), and kernel A bit for
+    bit on every recorded fill. Returns [B's record, A's]."""
+    from gaussianrpg_tpu_torch.ops import blend
+
     gdata, lists, bg, bkw = recorded[-1]
     kw = dict(ntx=lists.n_tiles_x, nty=lists.n_tiles_y, tx=lists.tile_x,
               ty=lists.tile_y, s_ch=bkw["s_ch"])
     rec_b = check_blend_fwd(torch, blend, gdata, lists, bg, kw, scene,
                             timed=False)[0]
     del recorded, gdata, lists
-    errs = [max(int((a - b).abs().max()) for a, b in
-                zip(scan.fused_cummax(xs), scan.fused_cummax_plain(xs)))
-            for xs in fills]
-    # two binnings a render (`render_until_fit` may render more than once)
-    ok = len(fills) >= 2 and len(fills) % 2 == 0 and max(errs) == 0
-    rec_a = dict(phase="eval", kernel="cummax", scene=scene + " fills",
-                 p=[int(xs[0].numel()) for xs in fills], calls=len(fills),
-                 max_abs_err=max(errs), tolerance="exact", ok=ok)
-    emit(rec_a)
-    check(ok, "eval", f"fused_cummax disagrees on the {scene} fills")
+    rec_a = check_fills(fills, phase, scene)
     del fills
     torch.cuda.empty_cache()
-    return out[0], [rec_b, rec_a]
+    return [rec_b, rec_a]
 
 
 def phase_eval(torch, tmp, opts, cfg_obj, trainer_evals, app_flags):
@@ -2503,6 +2546,373 @@ def phase_eval(torch, tmp, opts, cfg_obj, trainer_evals, app_flags):
     return launches, checks
 
 
+# ------------------------------------------------------------- phase prep
+
+# One Waymo segment's widths (Open Dataset v1.x): five cameras, a 64-beam
+# TOP LiDAR and four short-range ones; cut to PREP_FRAMES of its ~198
+PREP_FRAMES = 10
+PREP_STEPS = 8               # trainer steps on the converted scene
+PREP_QUALITY = 95            # the cameras' JPEGs, 4:2:0
+# dB, each decoded JPEG against its rendered frame: the first run on the
+# card read 51.53-53.75 dB (H100 80GB HBM3, 700.00 W)
+PREP_PSNR_FLOOR = 45.0
+# the first train view moved off its pose: (metres along the camera's x,
+# yaw in degrees); the built scene's L1 where its alpha > 0.5 must be
+# below PREP_POSE_MARGIN times the least of theirs. The first run on the
+# card read 0.0405 at the pose, 0.0484-0.0582 moved (a ratio of 0.836;
+# H100 80GB HBM3, 700.00 W)
+PREP_MOVES = ((0.5, 0.0), (-0.5, 0.0), (0.0, 2.0), (0.0, -2.0))
+PREP_POSE_MARGIN = 0.9
+PREP_CAMERAS = ((1, 1920, 1280, 0.0), (2, 1920, 1280, math.pi / 4),
+                (3, 1920, 1280, -math.pi / 4), (4, 1920, 886, math.pi / 2),
+                (5, 1920, 886, -math.pi / 2))     # name, width, height, yaw
+# name, rows, columns, inclinations (rad), position (vehicle), yaw, range
+PREP_LASERS = ((1, 64, 2650, -0.31, 0.04, (1.4, 0.0, 0.5), 0.0, 75.0),
+               (2, 200, 600, -1.5, 0.5, (3.8, 0.0, -0.8), 0.0, 20.0),
+               (3, 200, 600, -1.5, 0.5, (1.5, 0.9, -0.8), math.pi / 2,
+                20.0),
+               (4, 200, 600, -1.5, 0.5, (1.5, -0.9, -0.8), -math.pi / 2,
+                20.0),
+               (5, 200, 600, -1.5, 0.5, (-1.0, 0.0, -0.8), math.pi, 20.0))
+# the synthetic street's ground (world, Waymo axes): x 2-60 m ahead of
+# the first frame, y within 20 m, 1.5 m below the cameras
+PREP_STREET, PREP_GROUND_Z = (2.0, 60.0, -20.0, 20.0), -1.5
+
+
+def moved_camera(torch, cam, dx, yaw_deg):
+    """`cam` moved `dx` metres along its own x axis and turned `yaw_deg`
+    about its y axis; everything else (intrinsics, frame, ego pose) as
+    it was."""
+    V = cam.viewmatrix.double()
+    P = cam.projmatrix.double() @ torch.linalg.inv(V)
+    c, s = math.cos(math.radians(yaw_deg)), math.sin(math.radians(yaw_deg))
+    D = torch.tensor([[c, 0, -s, -dx], [0, 1, 0, 0], [s, 0, c, 0],
+                      [0, 0, 0, 1]], dtype=torch.float64, device=V.device)
+    V2 = D @ V
+    return cam.replace(viewmatrix=V2.float(), projmatrix=(P @ V2).float(),
+                       cam_center=torch.linalg.inv(V2)[:3, 3].float())
+
+
+def prep_record(torch, path, card):
+    """Write the phase's TFRecord at `path` (`utils/waymo_record`): phase
+    waymo's synthetic street (600k background Gaussians, the lead vehicle
+    at WAYMO_LEAD_SPEED ahead of the ego at WAYMO_EGO_SPEED) rendered by
+    the port on the card at each PREP_CAMERAS pose of PREP_FRAMES frames,
+    JPEG-encoded (PREP_QUALITY, 4:2:0) on the host's cores; each
+    PREP_LASERS LiDAR's returns where its rays meet the street, the lead
+    or a parked car (`Laser.ranges`); both cars' labels. Returns ({(frame,
+    camera name): the rendered frame}, {(frame, camera name): JPEG
+    bytes}, seconds by stage)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from gaussianrpg_tpu_torch.data.image_io import encode_jpeg
+    from gaussianrpg_tpu_torch.render.camera import make_camera
+    from gaussianrpg_tpu_torch.utils import waymo_record as wr
+    from gaussianrpg_tpu_torch.utils.synthetic import (fitting_renderer,
+                                                       lead_vehicle_scenario)
+
+    t0 = time.time()
+    models, meta, arrays, cams, _, _, _ = lead_vehicle_scenario(
+        1920, 1280, WAYMO_EGO_SPEED, WAYMO_LEAD_X, PREP_FRAMES, WAYMO_BKGD,
+        WAYMO_BKGD, 2048, "cuda")
+    ts = np.arange(PREP_FRAMES) / 10.0
+    pose = models.actor_pose
+    trans = pose.input_trans.clone()
+    trans[:, 0, 2] += torch.as_tensor(WAYMO_LEAD_SPEED * ts,
+                                      dtype=torch.float32, device="cuda")
+    models = models.replace(actor_pose=pose.replace(input_trans=trans))
+    render = fitting_renderer(models, meta, arrays, cams, 1, "cuda")
+    A = np.asarray(TO_WAYMO)
+    fx = float(cams[0].K[0, 0])
+    rig = [wr.Camera(n, w, h, fx, fx, w / 2, h / 2, wr.yaw_pose(yaw))
+           for n, w, h, yaw in PREP_CAMERAS]
+    frames, jpegs, pending = {}, {}, {}
+    pool = ThreadPoolExecutor(os.cpu_count() or 4)    # encodes as we render
+    for f in range(PREP_FRAMES):
+        ego_s = np.eye(4)                        # synthetic world: +z ahead
+        ego_s[2, 3] = WAYMO_EGO_SPEED * ts[f]
+        for cam in rig:
+            c2w = ego_s.copy()
+            c2w[:3, :3] = A.T @ cam.opencv_to_vehicle()[:3, :3]
+            w2c = np.linalg.inv(c2w)
+            K = np.array([[cam.fx, 0, cam.cx], [0, cam.fy, cam.cy],
+                          [0, 0, 1.0]])
+            res = render(make_camera(
+                R=w2c[:3, :3].T, T=w2c[:3, 3], K=K, width=cam.width,
+                height=cam.height, ego_pose=ego_s.astype(np.float32),
+                timestamp=float(ts[f]), frame=f, device="cuda"))
+            img = (res.rgb.clamp(0, 1) * 255 + 0.5).to(torch.uint8).permute(
+                1, 2, 0).cpu().numpy()
+            frames[f, cam.name] = img
+            pending[f, cam.name] = pool.submit(encode_jpeg, img,
+                                               PREP_QUALITY, "4:2:0")
+    torch.cuda.synchronize()
+    render_s = time.time() - t0
+    n_ac = int(models.actors_aux.n_active[0])
+    ac_xyz = models.actors.xyz[0, :n_ac].cpu().numpy() @ A.T
+    dims = ac_xyz.max(axis=0) - ac_xyz.min(axis=0) + 0.1   # l, w, h
+    lead = trans[:, 0].cpu().numpy().astype(np.float64) @ A.T
+    del models, render, cams
+    torch.cuda.empty_cache()
+    t1 = time.time()
+    with pool:
+        for key, fut in pending.items():
+            jpegs[key] = fut.result()
+    encode_s = time.time() - t1
+    t1 = time.time()
+    lasers = [wr.Laser(n, r, c, lo, hi, wr.yaw_pose(yaw, xyz), rng)
+              for n, r, c, lo, hi, xyz, yaw, rng in PREP_LASERS]
+    payloads = []
+    for f in range(PREP_FRAMES):
+        ego = wr.yaw_pose(0.0, (WAYMO_EGO_SPEED * ts[f], 0.0, 0.0))
+        boxes = [wr.Box(f"lead-{LEAD_ID}", tuple(lead[f]), tuple(dims),
+                        0.0, (WAYMO_LEAD_SPEED, 0.0)),
+                 wr.Box(f"parked-{PARKED_ID}",
+                        (45.0 - WAYMO_EGO_SPEED * ts[f], 4.0, -0.75),
+                        (4.2, 1.8, 1.5))]
+        payloads.append(wr.street_frame(
+            name="segment-synthetic-street", timestamp=1.6e9 + ts[f],
+            ego_pose=ego, cameras=rig,
+            jpegs={c.name: jpegs[f, c.name] for c in rig}, lasers=lasers,
+            street=PREP_STREET, ground_z=PREP_GROUND_Z, boxes=boxes))
+    wr.write_tfrecord(path, payloads)
+    secs = dict(render_s=render_s, encode_wait_s=encode_s,
+                lidar_and_write_s=time.time() - t1, total_s=time.time() - t0)
+    emit(dict(phase="prep", step="record", frames=PREP_FRAMES,
+              cameras=[f"{w}x{h}" for _, w, h, _ in PREP_CAMERAS],
+              lasers=[f"{r}x{c}" for _, r, c, *_ in PREP_LASERS],
+              jpeg=dict(quality=PREP_QUALITY, subsampling="4:2:0",
+                        mb=sum(map(len, jpegs.values())) / 1e6),
+              record_mb=os.path.getsize(path) / 1e6, **secs, card=card,
+              ok=True))
+    return frames, jpegs, secs
+
+
+def phase_prep(torch, card):
+    """The data-preparation toolchain on one segment's widths, through the
+    port alone: `prep_record` writes the TFRecord (real JPEG bytes), then
+    in subprocesses `apps.waymo_converter`, `apps.generate_lidar_depth`
+    and `apps.generate_sky_mask`; every converted JPEG decoded by
+    `image_io.read_jpeg` (bytes equal to the record's, PSNR against its
+    rendered frame above PREP_PSNR_FLOOR, ms per image); `apps.train
+    --config configs/waymo_149_1cam.yaml` for PREP_STEPS steps on the
+    converted scene (frames 0-9, the FRONT camera, loaded at 1600x1066).
+    In process, the first train view: the built scene must match it
+    better at its own pose than moved off it (PREP_MOVES), and the
+    checkpoint better than the built scene; the checkpoint's render of
+    it (its launches counted around it alone) holds kernel B to its
+    plain version on its pair rows and kernel A bit for bit on its
+    fills. Then kernels B and C on the built scene's first train step,
+    and A bit for bit on that step's fills. Returns (launches, the
+    kernel checks' records by kernel)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from gaussianrpg_tpu_torch.apps.train import (_autosize, optim_config,
+                                                  view_batches)
+    from gaussianrpg_tpu_torch.config.config import load_config
+    from gaussianrpg_tpu_torch.data.image_io import image_hw, read_jpeg
+    from gaussianrpg_tpu_torch.data.waymo import WaymoScene
+    from gaussianrpg_tpu_torch.models.scene_builder import \
+        build_scene_from_waymo
+    from gaussianrpg_tpu_torch.models.scene_graph import total_capacity
+    from gaussianrpg_tpu_torch.models.scene_io import load_latest_checkpoint
+    from gaussianrpg_tpu_torch.render.renderer import (RenderOptions,
+                                                       options_from_cfg,
+                                                       probe_scene_capacity,
+                                                       render_scene)
+    from gaussianrpg_tpu_torch.train.losses import psnr
+    from gaussianrpg_tpu_torch.train.trainer import (init_train_state,
+                                                     make_train_step)
+
+    t_phase = time.time()
+    tmp = tempfile.mkdtemp(prefix="prep_phase_")
+    try:
+        record = os.path.join(tmp, "segment.tfrecord")
+        frames, jpegs, rec_s = prep_record(torch, record, card)
+        root = os.path.join(tmp, "scene")
+        launches = {"blend_fwd": 0, "cummax": 0, "blend_bwd": 0}
+        stages = {}
+        for name, module, args in (
+                ("converter", "gaussianrpg_tpu_torch.apps.waymo_converter",
+                 ["--tfrecord", record, "--out", root]),
+                ("lidar_depth",
+                 "gaussianrpg_tpu_torch.apps.generate_lidar_depth",
+                 ["--datadir", root]),
+                ("sky_mask", "gaussianrpg_tpu_torch.apps.generate_sky_mask",
+                 ["--datadir", root])):
+            rc, lines, _, secs = run_entry(module, args)
+            stages[name] = secs
+            emit(dict(phase="prep", step=name, rc=rc, seconds=secs,
+                      tail=lines[-3:], card=card, ok=rc == 0))
+            check(rc == 0, "prep", f"{name} failed")
+        n_images = len(os.listdir(os.path.join(root, "images")))
+        depth_maps = len(os.listdir(os.path.join(root, "lidar_depth")))
+        ok = n_images == len(jpegs) == depth_maps
+        emit(dict(phase="prep", step="converted",
+                  converter_s_per_frame=stages["converter"] / PREP_FRAMES,
+                  images=n_images, depth_maps=depth_maps,
+                  sky_masks=len(os.listdir(os.path.join(root, "sky_mask"))),
+                  dynamic_masks=len(os.listdir(os.path.join(
+                      root, "dynamic_mask"))), card=card, ok=ok))
+        check(ok, "prep", "the converter or a generator lost images")
+
+        # every converted JPEG through the port's decoder
+        psnrs, same_bytes, decode_s, pixels = [], True, 0.0, 0
+        for (f, name), img in sorted(frames.items()):
+            path = os.path.join(root, "images", f"{f:06d}_{name - 1}.jpg")
+            with open(path, "rb") as fh:
+                same_bytes &= fh.read() == jpegs[f, name]
+            t0 = time.perf_counter()
+            got = read_jpeg(path)
+            decode_s += time.perf_counter() - t0
+            pixels += got.shape[0] * got.shape[1]
+            check(got.shape == img.shape and image_hw(path) == img.shape[:2],
+                  "prep", f"{path}: decoded {got.shape}, rendered "
+                  f"{img.shape}")
+            mse = float(np.mean((got.astype(np.float64) - img) ** 2))
+            psnrs.append(10 * math.log10(255.0 ** 2 / max(mse, 1e-12)))
+        ok = same_bytes and min(psnrs) > PREP_PSNR_FLOOR
+        emit(dict(phase="prep", step="jpeg decode", images=len(psnrs),
+                  bytes_equal_to_record=same_bytes,
+                  psnr_db=dict(min=min(psnrs), median=statistics.median(
+                      psnrs), max=max(psnrs)), floor_db=PREP_PSNR_FLOOR,
+                  ms_per_image=decode_s / len(psnrs) * 1e3,
+                  mpix_per_s=pixels / decode_s / 1e6, card=card, ok=ok))
+        check(ok, "prep", "the converted JPEGs differ from the record or "
+              "decode below the PSNR floor")
+        del frames
+
+        model_path = os.path.join(tmp, "model")
+        opts = ["source_path", root, "data.selected_frames",
+                f"[0,{PREP_FRAMES - 1}]", "model_path", model_path,
+                "train.iterations", str(PREP_STEPS)]
+        cfg = ["--config", "configs/waymo_149_1cam.yaml"]
+        rc, lines, ln, secs = run_entry("gaussianrpg_tpu_torch.apps.train",
+                                        cfg + opts)
+        stages["train"] = secs
+        for k in launches:
+            launches[k] += ln[k]
+        train = done_line(lines)
+        ckpt_dir = os.path.join(model_path, "trained_model")
+        ok = (rc == 0 and os.path.exists(os.path.join(
+            ckpt_dir, f"iteration_{PREP_STEPS}.npz"))
+              and math.isfinite(train.get("last_loss", math.nan)))
+        emit(dict(phase="prep", step="train", rc=rc, seconds=secs,
+                  median_step_ms=train.get("median_step"),
+                  first_loss=train.get("first_loss"),
+                  last_loss=train.get("last_loss"), launches=ln,
+                  tail=lines[-4:], card=card, ok=ok))
+        check(ok, "prep", "training on the converted scene failed")
+
+        # in process: the first train view of the built scene at its pose
+        # and moved off it, and of the checkpoint (its launches counted
+        # around it alone); then the kernels on the built scene's first
+        # train step
+        t0 = time.time()
+        cfg_obj = load_config("configs/waymo_149_1cam.yaml", opts)
+        scene = WaymoScene(root, selected_frames=[0, PREP_FRAMES - 1])
+        cams = scene.build_cameras("train", device="cuda")
+        models, meta, arrays, _ = build_scene_from_waymo(scene, cfg_obj,
+                                                         device="cuda")
+        trained = load_latest_checkpoint(ckpt_dir, models)
+        cam, gt_np = cams[0]
+        gt = torch.as_tensor(gt_np, device="cuda")
+        moved = [moved_camera(torch, cam, dx, yaw) for dx, yaw in PREP_MOVES]
+        sh = meta.bkgd_sh_degree
+        bopts = probe_scene_capacity(models, meta, arrays, [cam, *moved],
+                                     active_sh_degree=sh,
+                                     options=RenderOptions(), slack=1.3)
+        built = [render_scene(models, meta, arrays, c, active_sh_degree=sh,
+                              options=bopts, device="cuda")
+                 for c in [cam, *moved]]
+        seen = built[0].acc[0] > 0.5        # where the LiDAR init lies
+
+        def l1s(res):
+            err = (res.rgb - gt).abs().mean(0)
+            return float(err.mean()), float(err[seen].mean())
+
+        l1_built = l1s(built[0])
+        l1_moved = [l1s(r) for r in built[1:]]
+        overflow = any(bool(r.overflow) for r in built)
+        del built
+        ropts = probe_scene_capacity(trained, meta, arrays, [cam],
+                                     active_sh_degree=sh,
+                                     options=RenderOptions(), slack=1.3)
+        reset_counts()
+        view, recorded, fills = recorded_kernels(lambda: render_scene(
+            trained, meta, arrays, cam, active_sh_degree=sh, options=ropts,
+            device="cuda"))
+        torch.cuda.synchronize()
+        in_process = launch_counts()
+        for k in launches:
+            launches[k] += in_process[k]
+        l1_trained = l1s(view)
+        shape_ok = (tuple(view.rgb.shape) == (3, cam.height, cam.width)
+                    and bool(torch.isfinite(view.rgb).all())
+                    and not bool(view.overflow) and not overflow)
+        # the scene is right where the built scene matches its own view
+        # better than the same view moved off its pose, and training on
+        # the converted frames brings the view nearer still
+        ok = (shape_ok and l1_trained[0] < l1_built[0]
+              and l1_built[1] < PREP_POSE_MARGIN * min(m[1] for m in l1_moved))
+        emit(dict(phase="prep", step="render view", size=f"{cam.width}x"
+                  f"{cam.height}", seen_share=float(seen.float().mean()),
+                  l1=dict(trained=l1_trained, built=l1_built,
+                          built_moved=dict(zip(map(str, PREP_MOVES),
+                                               l1_moved))),
+                  l1_is="(whole view, where the built scene's alpha > 0.5)",
+                  margin=PREP_POSE_MARGIN,
+                  psnr=float(psnr(view.rgb.clamp(0, 1), gt)),
+                  launches=in_process, seconds=time.time() - t0, card=card,
+                  ok=ok))
+        check(ok, "prep", "the converted scene's view does not beat its "
+              "moved views, or training did not lower its L1")
+        del trained, view
+        checks = {"blend_fwd": [], "blend_bwd": [], "cummax": []}
+        for rec in check_recorded_view(torch, recorded, fills,
+                                       "prep trained view", "prep"):
+            checks[rec["kernel"]].append(rec)
+        del recorded, fills
+
+        sized = _autosize(options_from_cfg(
+            cfg_obj.render, render_normals=bool(
+                cfg_obj.optim.get("lambda_normal_mono", 0.0))),
+            [c for c, _ in cams], models, meta, arrays)
+        batch = view_batches(scene, [(cam, gt_np)], cfg_obj,
+                             "cuda")[0]._replace(gt_image=gt)
+        step = make_train_step(meta, arrays, optim_config(cfg_obj), sized,
+                               total_capacity(models), device="cuda")
+        state = init_train_state(models)
+        _, recorded, fills = recorded_kernels(lambda: step(
+            state, cam, batch, torch.Generator(device="cuda").manual_seed(1),
+            0))
+        del state, step, batch
+        for rec in check_recorded(torch, recorded[0],
+                                  "prep train step (first view)", seed=7):
+            checks[rec["kernel"]].append(rec)
+        checks["cummax"].append(check_fills(
+            fills, "prep", "prep train step (first view)"))
+        emit(dict(phase="prep", step="train step rows",
+                  capacity=recorded[0][0].shape[0],
+                  pairs=int(recorded[0][1].raw_total),
+                  overflowed=bool(recorded[0][1].overflowed), card=card,
+                  ok=True))
+        del recorded, fills, models
+        torch.cuda.empty_cache()
+        emit(dict(phase="prep", seconds=time.time() - t_phase,
+                  stages=dict(record=rec_s["total_s"], **stages),
+                  train_median_step_ms=train.get("median_step"),
+                  launches=launches, card=card, ok=True))
+        return launches, checks
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     try:
         import torch
@@ -2553,6 +2963,8 @@ def main():
             torch, app_flags)
         runs.append(waymo_launches)
         runs.append(eval_launches)
+        prep_launches, prep = phase_prep(torch, smi)
+        runs.append(prep_launches)
     except PhaseFailed as e:
         print(f"chip_smoke: {e}", file=sys.stderr)
         return 1
@@ -2561,13 +2973,15 @@ def main():
     # the trainer's capacity; errors over every shape checked
     errs_b = max(r["max_abs_err"]
                  for r in [b, *kout["blend_fwd"].values(),
-                           *waymo["blend_fwd"], *ev["blend_fwd"]])
+                           *waymo["blend_fwd"], *ev["blend_fwd"],
+                           *prep["blend_fwd"]])
     errs_c = max(r["max_abs_err"]
                  for r in [a_loop, c, *kout["cummax"].values(),
-                           *waymo["cummax"], *ev["cummax"]])
+                           *waymo["cummax"], *ev["cummax"],
+                           *prep["cummax"]])
     errs_d = max(r["max_abs_err"]
                  for r in [d, *kout["blend_bwd"].values(),
-                           *waymo["blend_bwd"]])
+                           *waymo["blend_bwd"], *prep["blend_bwd"]])
     emit({"kernels": [
         {"name": "blend_fwd", "route": "cuda",
          "source": "gaussianrpg_tpu_torch/csrc/blend_fwd.cu",

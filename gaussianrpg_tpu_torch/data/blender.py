@@ -6,8 +6,8 @@ Counterpart of `gaussianrpg_tpu/data/blender.py` (reference
 frames over the configured background, and seeds a random in-bounds
 pointcloud when the scene ships no `points3d.ply`. PNG frames are read
 without Pillow (`image_io.read_png_rgba`, Pillow's `convert("RGBA")` for
-grey, grey+alpha, RGB, RGBA and palette images); other formats go through
-Pillow where it is installed.
+grey, grey+alpha, RGB, RGBA and palette images), JPEG frames by
+`image_io.read_jpeg` (grey or RGB, made opaque).
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ from typing import List, Optional
 import numpy as np
 
 from ..render.camera import Camera, focal2fov, fov2focal, make_camera
-from .image_io import _is_png, _pillow, image_hw, read_png_rgba
+from .image_io import _is_png, image_hw, read_image, read_png_rgba
 
 
 @dataclass
@@ -50,8 +50,10 @@ def _read_rgba(path: str) -> np.ndarray:
     """[H, W, 4] uint8, as `Image.open(path).convert("RGBA")`."""
     if _is_png(path):
         return read_png_rgba(path)
-    with _pillow(path) as img:
-        return np.asarray(img.convert("RGBA"))
+    img = read_image(path)
+    out = np.full(img.shape[:2] + (4,), 255, np.uint8)
+    out[..., :3] = img[..., None] if img.ndim == 2 else img
+    return out
 
 
 def load_blender_split(path: str, split: str = "train",

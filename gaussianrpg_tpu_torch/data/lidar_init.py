@@ -14,8 +14,8 @@ All numpy/scipy (offline CPU tooling; the o3d voxel/outlier calls are
 re-implemented below — open3d is not a dependency here).
 
 A copy of `gaussianrpg_tpu/data/lidar_init.py`, but for the camera
-images, which are read by `data/image_io.read_image` (PNG, or JPEG
-through Pillow where it is installed).
+images, which are read by `data/image_io.read_image` (PNG, or baseline
+JPEG by the port's own decoder).
 """
 from __future__ import annotations
 

@@ -20,9 +20,10 @@ stays a CPU-side preprocessing step, as in the reference.
 
 Counterpart of `gaussianrpg_tpu/data/waymo.py`, the same code but for two
 things: images go through `data/image_io` instead of Pillow (PNG read,
-`resize_bilinear` / `resize_nearest` equal to Pillow's resizes; JPEG only
-where Pillow is installed), and `build_cameras` makes the port's cameras
-on the caller's device. Images and planes stay numpy arrays on the host.
+`resize_bilinear` / `resize_nearest` equal to Pillow's resizes; baseline
+JPEG by `read_jpeg`, equal to Pillow's decode), and `build_cameras` makes
+the port's cameras on the caller's device. Images and planes stay numpy
+arrays on the host.
 """
 from __future__ import annotations
 
