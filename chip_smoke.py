@@ -144,12 +144,30 @@ Phases, one JSON line each (any failure ends the run with exit code 1):
           checkpoint (the pose and training gates), kernels B and A
           against their plain versions on the checkpoint view's pair rows
           and fills, and B, C and A on the built scene's first train step
-          (`phase_prep`).
+          (`phase_prep`);
+  mesh    the multi-device layer (`parallel/`) on the one card: NCCL puts
+          no two ranks on one device, so the sharded paths run with gloo
+          at world size 2, both ranks on the card (compute mode Default
+          required), and with NCCL at world size 1. `apps.train --synthetic
+          --mesh 2 --dist-backend gloo --iterations 4` under
+          `torch.distributed.run` (rank 0's checkpoint); the trainer scene
+          of phase train (600k + 2 actors, 1600x1066) for 20 steps on a
+          2-rank `data` mesh in two spawned processes against the same
+          steps on one card (step-1 loss and densification statistics,
+          the Gaussians only the mesh saw being those of the last strip's
+          padding rows by geometry, the trajectory, the falling loss; ms
+          a step, peak memory of each rank), kernels B, C and A on a
+          strip's own pair rows and fills, `render_scene_sharded` on a
+          1-rank NCCL mesh bit for bit its strip camera's render, beside
+          the frame's own render and a witness of what a one-step change
+          of the projection moves; `apps.scaling_bench` at its defaults
+          on 1 rank (NCCL) and on 2 gloo ranks sharing the card
+          (`phase_mesh`).
 The line before the last is the kernel table ({"kernels": [...]}: kernels
 A, B and C with their launches summed over the closed loop, perception
-(c)'s and (d)'s loops, train_frame, train, waymo, eval and prep runs
-(waymo's, eval's and prep's counted in their subprocesses too), B's and
-C's times from
+(c)'s and (d)'s loops, train_frame, train, waymo, eval, prep and mesh
+runs (waymo's, eval's, prep's and mesh's counted in their subprocesses
+too), B's and C's times from
 the loop
 frame, A's from the trainer's capacity, their errors the largest over
 every shape checked; the five tool kernels with their
@@ -2913,6 +2931,533 @@ def phase_prep(torch, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ------------------------------------------------------------ phase mesh
+
+MESH_STEPS = 20              # cut from the trainer's 30k (a 150 s budget)
+MESH_BKGD, MESH_CAP = 600_000, 786_432
+MESH_W, MESH_H = 1600, 1066
+MESH_GROUP_TIMEOUT_S = 300
+MESH_JOIN_TIMEOUT_S = 900
+# gates (tests/test_sharded.py:107-134, :235-241)
+MESH_LOSS1_RTOL = 1e-5
+MESH_AUX_ATOL, MESH_AUX_RTOL = 1e-5, 1e-4
+MESH_EARLY_RTOL, MESH_ALL_RTOL = 2e-3, 0.15
+MESH_NCCL_TOL = 1e-5         # the padded strip re-projected (:40-41)
+# a pair "at a cutoff": its alpha within this relative distance of 1/255,
+# or the transmittance after it within it of 1e-4 (float64 evaluation)
+MESH_CUTOFF_REL = 1e-5
+MESH_CONTROL_PIXELS, MESH_CONTROL_MAX = 200, 0.25
+
+
+def mesh_steps(torch, models, meta, arrays, cam_gt, opts, mesh, dev):
+    """MESH_STEPS production steps of the trainer (`make_train_step` with
+    the app's overflow discard-and-retry) on `mesh` (None: one card),
+    cycling through the views: (losses, host ms a step, the background's
+    densification statistics after the first step, retries)."""
+    from gaussianrpg_tpu_torch.apps import train as A
+    from gaussianrpg_tpu_torch.models.scene_graph import total_capacity
+    from gaussianrpg_tpu_torch.train.trainer import (Batch, OptimConfig,
+                                                     init_train_state,
+                                                     make_train_step)
+
+    cfg = OptimConfig()
+    n_total = total_capacity(models)
+
+    def make_step(o):
+        return make_train_step(meta, arrays, cfg, o, n_total, device=dev,
+                               mesh=mesh)
+
+    step_fn, state = make_step(opts), init_train_state(models)
+    losses, ms, aux1, retries = [], [], None, 0
+    for it in range(1, MESH_STEPS + 1):
+        cam, gt = cam_gt[(it - 1) % len(cam_gt)]
+        gen = torch.Generator(device=dev).manual_seed(it)
+        t0 = time.perf_counter()
+        step_fn, opts, state, loss, _, _, r = A.step_with_overflow_retry(
+            step_fn, make_step, opts, state, cam, Batch(gt_image=gt), gen, 0)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        retries += r
+        if it == 1:
+            aux = state.models.bkgd_aux
+            aux1 = {f: getattr(aux, f).detach().clone() for f in
+                    ("xyz_gradient_accum", "denom", "max_radii2d")}
+    return losses, ms, aux1, retries, opts
+
+
+def padding_only(torch, models, meta, arrays, cam, opts, n_strips):
+    """The background Gaussians that only the padding rows of the last of
+    `n_strips` strips can see, from the geometry alone (the scene graph
+    and the primitive stage under the last strip camera, no mesh): radius
+    > 0 there and a tile rect that starts at or past tile row ceil(H /
+    tile_y) of the image, the first row wholly below it. Bool [N_bkgd]."""
+    from gaussianrpg_tpu_torch.models.scene_graph import compose
+    from gaussianrpg_tpu_torch.ops.rasterize import primitive_fields
+    from gaussianrpg_tpu_torch.parallel.sharded import strip_cameras
+
+    last = strip_cameras(cam, n_strips)[-1]
+    with torch.no_grad():
+        sc = compose(models, meta, arrays, last, 0, include_objects=False)
+        fs = primitive_fields(
+            sc.means3d, sc.opacity, camera=last, colors=sc.colors,
+            scales=sc.scales, rotations=sc.rotations,
+            scale_modifier=opts.scaling_modifier, active_mask=sc.mask,
+            tile_x=opts.tile_x, tile_y=opts.tile_y)
+    first_pad = (math.ceil(cam.height / opts.tile_y)
+                 - (n_strips - 1) * last.height // opts.tile_y)
+    n = models.bkgd_aux.denom.shape[0]
+    return ((fs.radii > 0) & (fs.rect_min[:, 1] >= first_pad))[:n]
+
+
+def aux_agreement(torch, mesh_aux, single_aux, padding):
+    """The background's densification statistics after the first step on
+    the mesh against one card's: every Gaussian within MESH_AUX_ATOL /
+    MESH_AUX_RTOL on every statistic, except those the mesh saw and the
+    one card did not (visibility and radius counted, no gradient), which
+    must be exactly the Gaussians one card did not see whose rect lies
+    in the last strip's padding rows only (`padding`, from
+    `padding_only`)."""
+    single_seen = single_aux["denom"][:, 0] > 0
+    only_mesh = (mesh_aux["denom"][:, 0] > 0) & ~single_seen
+    expected = padding & ~single_seen
+    rows_bad = torch.zeros_like(single_seen)
+    errs = {}
+    for k, ref in single_aux.items():
+        got, ref = mesh_aux[k].double(), ref.double()
+        bad = (got - ref).abs() > MESH_AUX_ATOL + MESH_AUX_RTOL * ref.abs()
+        bad = bad.reshape(bad.shape[0], -1).any(dim=1)
+        rows_bad |= bad
+        errs[k] = float((got - ref).abs()[~only_mesh].max())
+    same_set = bool(torch.equal(only_mesh, expected))
+    return dict(max_abs_err_where_one_card_saw=errs,
+                seen_by_mesh_only=int(only_mesh.sum()),
+                padding_only_unseen_by_one_card=int(expected.sum()),
+                seen_by_mesh_only_is_padding_only=same_set,
+                gaussians_out_of_tol=int(rows_bad.sum()),
+                out_of_tol_outside_those=int((rows_bad & ~only_mesh).sum()),
+                ok=same_set and not bool((rows_bad & ~only_mesh).any()))
+
+
+def moved_pixels(torch, got, ref):
+    """[H, W] bool: pixels of `got` [C, H, W] beyond MESH_NCCL_TOL of
+    `ref` (atol and rtol) in any channel."""
+    return ((got - ref).abs() > MESH_NCCL_TOL
+            + MESH_NCCL_TOL * ref.abs()).any(dim=0)
+
+
+def at_cutoff(torch, models, meta, arrays, cams, opts, pixels):
+    """[K] bool: for each pixel (y, x) of `pixels` [K, 2], whether under
+    any of `cams` a Gaussian binned to its tile sits at one of the blend's
+    cutoffs there (MESH_CUTOFF_REL): its alpha at 1/255, or the pixel's
+    transmittance after it, in depth order, at the 1e-4 stop. Such a pair
+    is one that a rounding-level change of the projection moves across
+    the cutoff. Float64 from each camera's primitive fields (plain
+    PyTorch: no kernel, no mesh)."""
+    from gaussianrpg_tpu_torch.models.scene_graph import compose
+    from gaussianrpg_tpu_torch.ops.blend import (F_CA, F_CB, F_CC, F_MX,
+                                                 F_MY, F_OP)
+    from gaussianrpg_tpu_torch.ops.rasterize import primitive_fields
+
+    rel = MESH_CUTOFF_REL
+    hit = torch.zeros(len(pixels), dtype=torch.bool)
+    with torch.no_grad():
+        for c in cams:
+            sc = compose(models, meta, arrays, c, meta.bkgd_sh_degree)
+            fs = primitive_fields(
+                sc.means3d, sc.opacity, camera=c, colors=sc.colors,
+                scales=sc.scales, rotations=sc.rotations,
+                scale_modifier=opts.scaling_modifier, active_mask=sc.mask,
+                tile_x=opts.tile_x, tile_y=opts.tile_y)
+            f = fs.fields.double()
+            for k, (y, x) in enumerate(pixels.tolist()):
+                tx, ty = x // opts.tile_x, y // opts.tile_y
+                idx = torch.nonzero(
+                    (fs.radii > 0) & (fs.rect_min[:, 0] <= tx)
+                    & (fs.rect_max[:, 0] > tx) & (fs.rect_min[:, 1] <= ty)
+                    & (fs.rect_max[:, 1] > ty)).squeeze(1)
+                idx = idx[torch.argsort(fs.depths[idx], stable=True)]
+                g = f[idx]
+                dx, dy = g[:, F_MX] - x, g[:, F_MY] - y
+                power = (-0.5 * (g[:, F_CA] * dx * dx + g[:, F_CC] * dy * dy)
+                         - g[:, F_CB] * dx * dy)
+                alpha = g[:, F_OP] * torch.exp(power)
+                live = (power <= 0) & (alpha >= 1.0 / 255.0)
+                t_after = torch.cumprod(torch.where(
+                    live, 1.0 - alpha.clamp(max=0.99),
+                    torch.ones_like(alpha)), 0)
+                near = (power <= 0) & ((alpha * 255.0 - 1.0).abs() < rel)
+                near |= live & ((t_after * 1e4 - 1.0).abs() < rel)
+                hit[k] |= bool(near.any())
+    return hit
+
+
+def cutoff_witness(torch, models, meta, arrays, cams, opts, moved, seed=0):
+    """`at_cutoff` on every pixel of `moved` ([H, W] bool, the pixels
+    that differ between the renders of `cams`) and on
+    MESH_CONTROL_PIXELS other pixels drawn with `seed`: every moved pixel
+    must have a pair at a cutoff, and at most MESH_CONTROL_MAX of the
+    controls (the witness tells them apart)."""
+    moved_px = torch.nonzero(moved).cpu()
+    gen = torch.Generator().manual_seed(seed)
+    others = torch.nonzero(~moved).cpu()
+    controls = others[torch.randperm(len(others), generator=gen)[
+        :MESH_CONTROL_PIXELS]]
+    hit_m = at_cutoff(torch, models, meta, arrays, cams, opts, moved_px)
+    hit_c = at_cutoff(torch, models, meta, arrays, cams, opts, controls)
+    return dict(moved=len(moved_px), moved_at_a_cutoff=int(hit_m.sum()),
+                controls=len(controls),
+                controls_at_a_cutoff=int(hit_c.sum()),
+                ok=bool(hit_m.all())
+                and float(hit_c.float().mean()) <= MESH_CONTROL_MAX)
+
+
+def nccl_one_rank(torch, models, meta, arrays, cam, opts):
+    """`render_scene_sharded` on a 1-rank NCCL mesh: bit for bit the
+    unsharded render of its strip camera (the frame re-projected at the
+    padded height, cropped); beside the frame's own render it moves a few
+    pixels beyond MESH_NCCL_TOL, and two witnesses that this is the
+    re-projection, not the mesh: the frame's camera with every nonzero
+    entry of its projection moved one float32 step up, rendered without
+    a mesh, moves pixels beyond MESH_NCCL_TOL too, and every pixel that
+    either camera moves has a pair at one of the blend's cutoffs
+    (`cutoff_witness`), as few other pixels do. Then `render_strips` of
+    the small scene on that mesh within MESH_NCCL_TOL of `rasterize`
+    (tests/test_sharded.py:40-41)."""
+    import torch.distributed as dist
+
+    from gaussianrpg_tpu_torch.ops.rasterize import rasterize
+    from gaussianrpg_tpu_torch.parallel.sharded import (make_mesh,
+                                                        render_scene_sharded,
+                                                        render_strips,
+                                                        strip_cameras)
+    from gaussianrpg_tpu_torch.render.renderer import render_scene
+
+    mesh = make_mesh()
+    kw = dict(active_sh_degree=meta.bkgd_sh_degree, options=opts,
+              device="cuda")
+    got = render_scene_sharded(models, meta, arrays, cam, mesh, **kw)
+    strip = render_scene(models, meta, arrays, strip_cameras(cam, 1)[0], **kw)
+    ref = render_scene(models, meta, arrays, cam, **kw)
+    P = cam.projmatrix
+    ulp = cam.replace(projmatrix=torch.where(
+        P != 0, torch.nextafter(P, torch.full_like(P, math.inf)), P))
+    nudged = render_scene(models, meta, arrays, ulp, **kw)
+    H = cam.height
+    exact = all(torch.equal(getattr(got, f), getattr(strip, f)[:, :H])
+                for f in ("rgb", "acc", "depth")) and torch.equal(
+        got.radii, strip.radii)
+    moved = moved_pixels(torch, got.rgb, ref.rgb)
+    moved_ulp = moved_pixels(torch, nudged.rgb, ref.rgb)
+    witness = dict(
+        pixels_beyond_tol=int(moved_ulp.sum()),
+        max_abs_err=float((nudged.rgb - ref.rgb).abs().max()),
+        pixels_moved_by_both=int((moved & moved_ulp).sum()))
+    cutoffs = dict(
+        strip_camera=cutoff_witness(torch, models, meta, arrays,
+                                    [cam, strip_cameras(cam, 1)[0]], opts,
+                                    moved),
+        one_step_camera=cutoff_witness(torch, models, meta, arrays,
+                                       [cam, ulp], opts, moved_ulp, seed=1))
+
+    host = small_gaussians()
+    t = [torch.as_tensor(host[k], device="cuda") for k in
+         ("means3d", "opacities", "colors", "scales", "rotations")]
+    small = small_camera("cuda")
+    bg = torch.tensor([0.1, 0.2, 0.3], device="cuda")
+
+    def render_fn(c, m, op, co, sc, r):
+        out = rasterize(m, op, colors=co, scales=sc, rotations=r, camera=c,
+                        bg_color=bg, capacity=1 << 16, device="cuda")
+        return torch.cat([out.color, out.depth, out.alpha], dim=0)
+
+    with torch.no_grad():
+        sharded = render_strips(render_fn, small, mesh, *t)
+        single = render_fn(small, *t)
+    small_err = float((sharded - single).abs().max())
+    small_ok = bool(torch.allclose(sharded, single, rtol=MESH_NCCL_TOL,
+                                   atol=MESH_NCCL_TOL))
+    return dict(backend=dist.get_backend(),
+                strip_rows=strip_cameras(cam, 1)[0].height,
+                equals_strip_render=exact,
+                vs_frame_render_max_abs_err=float(
+                    (got.rgb - ref.rgb).abs().max()),
+                vs_frame_render_pixels_beyond_tol=int(moved.sum()),
+                one_ulp_projection_witness=witness,
+                pairs_at_a_cutoff=cutoffs,
+                radii_equal_frame_render=bool(torch.equal(got.radii,
+                                                          ref.radii)),
+                small_scene_max_abs_err=small_err,
+                small_scene_within_tol=small_ok,
+                ok=(exact and small_ok and witness["pixels_beyond_tol"] > 0
+                    and all(c["ok"] for c in cutoffs.values())))
+
+
+def mesh_rank(rank, world, init, out_dir):
+    """One rank of phase mesh's gloo run, both ranks on the card: the
+    600k trainer scene at 1600x1066 on a 2-rank `data` mesh for
+    MESH_STEPS steps (launches, peak memory, ms a step), then one more
+    step with its tile stage recorded, on whose strip rank 1 holds
+    kernels B and C to their plain versions and A bit for bit; then rank
+    0 alone trains the same steps on one card and renders a frame through
+    `render_scene_sharded` on a 1-rank NCCL mesh against `render_scene`.
+    Writes its record to out_dir/rank<r>.json."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    out = dict(rank=rank)
+    try:
+        from gaussianrpg_tpu_torch.apps import train as A
+        from gaussianrpg_tpu_torch.parallel.sharded import (
+            make_mesh, render_scene_sharded)
+        from gaussianrpg_tpu_torch.render.renderer import render_scene
+
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dist.init_process_group(
+            "gloo", init_method=init, rank=rank, world_size=world,
+            timeout=datetime.timedelta(seconds=MESH_GROUP_TIMEOUT_S))
+        t0 = time.time()
+        models, meta, arrays, cam_gt, opts = A.synthetic_setup(
+            "cuda", n_background=MESH_BKGD, bkgd_capacity=MESH_CAP,
+            width=MESH_W, height=MESH_H)
+        out["setup_s"] = time.time() - t0
+        mesh = make_mesh()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        losses, ms, aux1, retries, sized = mesh_steps(
+            torch, models, meta, arrays, cam_gt, opts, mesh, "cuda")
+        out.update(launches=launch_counts(), losses=losses, ms=ms,
+                   retries=retries, capacity=sized.capacity,
+                   peak_mem_bytes=torch.cuda.max_memory_allocated())
+
+        # one more step (its state is dropped) with the tile stage
+        # recorded: rank 1's strip has the padding rows
+        from gaussianrpg_tpu_torch.models.scene_graph import total_capacity
+        from gaussianrpg_tpu_torch.train.trainer import (
+            Batch, OptimConfig, init_train_state, make_train_step)
+        step = make_train_step(meta, arrays, OptimConfig(), sized,
+                               total_capacity(models), device="cuda",
+                               mesh=mesh)
+        cam, gt = cam_gt[0]
+        _, recorded, fills = recorded_kernels(lambda: step(
+            init_train_state(models), cam, Batch(gt_image=gt),
+            torch.Generator(device="cuda").manual_seed(1), 0))
+        del step
+        if rank == 1:
+            gdata, lists = recorded[0][:2]
+            scene = f"strip 1 of 2 ({lists.n_tiles_x}x{lists.n_tiles_y} " \
+                    f"tiles, rows {gdata.shape[0]})"
+            rec_b, rec_c = check_recorded(torch, recorded[0], scene, 1)
+            rec_a = check_fills(fills, "mesh", scene)
+            out["kernels"] = dict(blend_fwd=rec_b, blend_bwd=rec_c,
+                                  cummax=rec_a)
+        del recorded, fills
+        dist.barrier()
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+        if rank == 0:
+            torch.cuda.reset_peak_memory_stats()
+            (out["single_losses"], out["single_ms"], single_aux1, _,
+             _) = mesh_steps(torch, models, meta, arrays, cam_gt, opts, None,
+                             "cuda")
+            out["single_peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+            out["aux1"] = aux_agreement(
+                torch, aux1, single_aux1,
+                padding_only(torch, models, meta, arrays, cam_gt[0][0],
+                             opts, 2))
+
+            # NCCL at world size 1: the sharded render of the frame and of
+            # the small scene through `render_strips`
+            dist.init_process_group(
+                "nccl", init_method=init + "_nccl", rank=0, world_size=1,
+                timeout=datetime.timedelta(seconds=MESH_GROUP_TIMEOUT_S))
+            out["nccl"] = nccl_one_rank(torch, models, meta, arrays,
+                                        cam_gt[0][0], sized)
+            dist.destroy_process_group()
+        out["ok"] = True
+    except Exception:                    # reported to the parent process
+        import traceback
+        out.update(ok=False, error=traceback.format_exc()[-3000:])
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def compute_mode():
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=compute_mode",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return "unknown"
+
+
+def run_launch(nproc, module, args, tmp, timeout=600):
+    """`python -m torch.distributed.run --standalone --nproc_per_node
+    nproc` of `module args` from the script's directory, through the
+    launch-counting runner (every rank's launches summed): (returncode,
+    stdout lines, launches, seconds)."""
+    runner = os.path.join(tmp, "launch_runner.py")
+    with open(runner, "w") as f:
+        f.write(LAUNCH_RUNNER)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", str(nproc), runner, module, *args], cwd=here,
+        env=env, capture_output=True, text=True, timeout=timeout)
+    lines, launches = [], {"blend_fwd": 0, "cummax": 0, "blend_bwd": 0}
+    for ln in proc.stdout.strip().splitlines():
+        if ln.startswith("launches "):
+            for k, v in json.loads(ln[len("launches "):]).items():
+                launches[k] += v
+        else:
+            lines.append(ln)
+    if proc.returncode != 0:
+        lines.append(proc.stderr[-2000:])
+    return proc.returncode, lines, launches, time.time() - t0
+
+
+def phase_mesh(torch):
+    """The multi-device layer on one card. NCCL puts no two ranks on one
+    device, so the sharded paths run with NCCL at world size 1 and with
+    gloo at world size 2, both ranks on the card (the only run here in
+    which strips, collectives and summed gradients are real on the card;
+    the card must be in compute mode Default). (1) `apps.train --synthetic
+    --mesh 2 --dist-backend gloo --iterations 4` under
+    `torch.distributed.run` must exit 0 and leave rank 0's checkpoint;
+    (2) `mesh_rank` in two spawned processes: the 600k trainer scene at
+    1600x1066 on a 2-rank gloo mesh against the same steps on one card
+    (step-1 loss rtol 1e-5, step-1 densification statistics atol 1e-5 /
+    rtol 1e-4 where one card saw the Gaussian, and the Gaussians only the
+    mesh saw exactly those of the last strip's padding rows, from the
+    geometry; steps 1-5 rtol 2e-3, all within 0.15, the mesh's loss
+    falls), ms a step and peak memory of each rank, kernels B, C and A on
+    a strip's own inputs, and the NCCL 1-rank render (`nccl_one_rank`);
+    (3) `apps.scaling_bench` at its defaults on 1
+    rank (NCCL) and 2 ranks (gloo, sharing the card: not a scaling
+    figure). Returns (the mesh ranks' and the CLI's launches, the strip's
+    kernel records)."""
+    import multiprocessing as mp
+    import shutil
+    import tempfile
+
+    t_phase = time.time()
+    mode = compute_mode()
+    emit(dict(phase="mesh", compute_mode=mode))
+    check(mode == "Default", "mesh", f"compute mode {mode!r}: two ranks on "
+          "the card need Default")
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="mesh_phase_")
+    try:
+        # (1) the entry point under the launcher
+        model = os.path.join(tmp, "cli")
+        rc, lines, cli_launches, secs = run_launch(
+            2, "gaussianrpg_tpu_torch.apps.train",
+            ["--synthetic", "--mesh", "2", "--dist-backend", "gloo",
+             "--iterations", "4", "model_path", model], tmp)
+        ckpt = os.path.exists(os.path.join(model, "trained_model",
+                                           "iteration_4.npz"))
+        ok = rc == 0 and ckpt
+        emit(dict(phase="mesh", cli="torch.distributed.run --nproc_per_node "
+                  "2 -m gaussianrpg_tpu_torch.apps.train --synthetic --mesh "
+                  "2 --dist-backend gloo --iterations 4", rc=rc,
+                  seconds=secs, checkpoint=ckpt, launches=cli_launches,
+                  done=done_line(lines), last_lines=lines[-3:], ok=ok))
+        check(ok, "mesh", "the mesh training CLI failed or wrote no "
+              "checkpoint")
+
+        # (2) the full-width mesh against one card
+        t0 = time.time()
+        ctx = mp.get_context("spawn")
+        init = "file://" + os.path.join(tmp, "rendezvous")
+        procs = [ctx.Process(target=mesh_rank, args=(r, 2, init, tmp))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + MESH_JOIN_TIMEOUT_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for r in hung:
+            procs[r].kill()
+            procs[r].join(30)
+        recs = []
+        for r in range(2):
+            path = os.path.join(tmp, f"rank{r}.json")
+            recs.append(json.load(open(path)) if os.path.exists(path)
+                        else dict(ok=False, error=f"no record (exit code "
+                                  f"{procs[r].exitcode})"))
+        errors = [f"rank {r}: {x['error']}" for r, x in enumerate(recs)
+                  if not x["ok"]]
+        check(not hung and not errors, "mesh",
+              f"ranks {hung} hung; " + " | ".join(errors))
+        r0, r1 = recs
+        m = r0["losses"]
+        s = r0["single_losses"]
+        half = MESH_STEPS // 2
+        gates = {
+            "ranks_agree": r0["losses"] == r1["losses"],
+            "loss1_rtol_1e-5": abs(m[0] - s[0]) <= MESH_LOSS1_RTOL * abs(s[0]),
+            "aux1_atol_1e-5_rtol_1e-4": r0["aux1"]["ok"],
+            "steps1_5_rtol_2e-3": all(
+                abs(a - b) <= MESH_EARLY_RTOL * abs(b)
+                for a, b in zip(m[:5], s[:5])),
+            "all_rtol_0.15": all(abs(a - b) <= MESH_ALL_RTOL * abs(b)
+                                 for a, b in zip(m, s)),
+            "mesh_loss_falls": (statistics.mean(m[half:])
+                                < statistics.mean(m[:half])),
+            "nccl_1_rank": r0["nccl"]["ok"],
+        }
+        launches = {k: r0["launches"][k] + r1["launches"][k]
+                    + cli_launches[k] for k in cli_launches}
+        ok = all(gates.values()) and all(v > 0 for v in launches.values())
+        emit(dict(phase="mesh", gaussians=MESH_BKGD, actors=2,
+                  size=f"{MESH_W}x{MESH_H}", ranks=2, backend="gloo",
+                  devices=1, steps=MESH_STEPS, capacity=r0["capacity"],
+                  mesh_losses=m, single_losses=s,
+                  mesh_median_step_ms=statistics.median(r0["ms"]),
+                  single_median_step_ms=statistics.median(r0["single_ms"]),
+                  mesh_step_ms=r0["ms"], single_step_ms=r0["single_ms"],
+                  peak_mem_bytes_rank0=r0["peak_mem_bytes"],
+                  peak_mem_bytes_rank1=r1["peak_mem_bytes"],
+                  single_peak_mem_bytes=r0["single_peak_mem_bytes"],
+                  aux1=r0["aux1"], nccl=r0["nccl"],
+                  retries=[r0["retries"], r1["retries"]],
+                  setup_s=[r0["setup_s"], r1["setup_s"]],
+                  launches_rank0=r0["launches"],
+                  launches_rank1=r1["launches"], launches=launches,
+                  gates=gates, seconds=time.time() - t0, ok=ok))
+        check(ok, "mesh", f"mesh run failed its gates: {gates}")
+
+        # (3) the scaling bench at its defaults
+        points = {}
+        for nproc, backend in ((1, "nccl"), (2, "gloo")):
+            rc, lines, _, secs = run_launch(
+                nproc, "gaussianrpg_tpu_torch.apps.scaling_bench",
+                ["--dist-backend", backend], tmp)
+            pts = [json.loads(ln) for ln in lines if ln.startswith("{")]
+            points[backend] = pts
+            emit(dict(phase="mesh", scaling_bench=f"{nproc} rank(s), "
+                      f"{backend}", points=pts, seconds=secs,
+                      note=("two ranks sharing one card: not a scaling "
+                            "figure") if nproc > 1 else "one rank, one card",
+                      ok=rc == 0 and len(pts) == nproc))
+            check(rc == 0 and len(pts) == nproc, "mesh",
+                  f"scaling_bench on {nproc} rank(s) failed: {lines[-2:]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(dict(phase="mesh", seconds=time.time() - t_phase, ok=True))
+    return launches, r1["kernels"]
+
+
 def main():
     try:
         import torch
@@ -2965,6 +3510,8 @@ def main():
         runs.append(eval_launches)
         prep_launches, prep = phase_prep(torch, smi)
         runs.append(prep_launches)
+        mesh_launches, strip = phase_mesh(torch)
+        runs.append(mesh_launches)
     except PhaseFailed as e:
         print(f"chip_smoke: {e}", file=sys.stderr)
         return 1
@@ -2974,14 +3521,15 @@ def main():
     errs_b = max(r["max_abs_err"]
                  for r in [b, *kout["blend_fwd"].values(),
                            *waymo["blend_fwd"], *ev["blend_fwd"],
-                           *prep["blend_fwd"]])
+                           *prep["blend_fwd"], strip["blend_fwd"]])
     errs_c = max(r["max_abs_err"]
                  for r in [a_loop, c, *kout["cummax"].values(),
                            *waymo["cummax"], *ev["cummax"],
-                           *prep["cummax"]])
+                           *prep["cummax"], strip["cummax"]])
     errs_d = max(r["max_abs_err"]
                  for r in [d, *kout["blend_bwd"].values(),
-                           *waymo["blend_bwd"], *prep["blend_bwd"]])
+                           *waymo["blend_bwd"], *prep["blend_bwd"],
+                           strip["blend_bwd"]])
     emit({"kernels": [
         {"name": "blend_fwd", "route": "cuda",
          "source": "gaussianrpg_tpu_torch/csrc/blend_fwd.cu",

@@ -13,8 +13,11 @@ each counterpart is easy to find:
   sim/       closed-loop simulator: tape, dynamics, AEB, detectors,
              YOLOv5 (sim/yolo.py) and the fused render -> letterbox ->
              YOLOv5 -> top-K step (sim/pipeline.py)
+  train/     losses and the train step
+  parallel/  multi-device rendering and training over torch.distributed
+             (tile strips, primitive shards, summed gradients)
   utils/     device selection, synthetic scenes
-  apps/      CLI entry points (simulate, train, profile_trace)
+  apps/      CLI entry points (simulate, train, render, scaling_bench, ...)
 
 Entry points run on CUDA unless the caller passes `device="cpu"`; on the
 CPU every kernel wrapper uses its plain PyTorch version.

@@ -23,6 +23,14 @@ kernels that took the most device time:
         [--trace DIR]      # DIR/<workload>.json: chrome traces
     python -m gaussianrpg_tpu_torch.apps.profile_trace [--frames 5] \
         --config CFG --cipv ID [KEY VALUE ...]
+
+The JAX app's flags run its workload instead: a `torch.profiler` trace of
+`--steps` renders and one train step of its bench scene (20000 background
+Gaussians, 2 actors, `--width` x `--height`, pair capacity 2^18), written
+as a chrome trace to `--logdir`/trace.json, beside the same JSON line:
+
+    python -m gaussianrpg_tpu_torch.apps.profile_trace [--logdir PROF] \
+        [--steps 3] [--width 512] [--height 320] [--device cpu]
 """
 from __future__ import annotations
 
@@ -33,36 +41,47 @@ import time
 from collections import defaultdict
 
 
-def _breakdown(run, frames, trace_path=None, top=12):
+def _breakdown(run, frames, trace_path=None, top=12, device="cuda"):
+    """Device ms by kernel over `frames` calls of `run` (after a warm-up
+    call). On the CPU (`device`) there is no device time: the line then
+    holds the host ms and the CPU ops that took the most time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
     run()                                     # warm: builds, caches
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    sync()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                           if cuda else [])
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(frames):
             run()
-        torch.cuda.synchronize()
+        sync()
         host_s = time.perf_counter() - t0
     if trace_path:
         prof.export_chrome_trace(trace_path)
     by_name = defaultdict(float)
     copy_us = 0.0
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+        if e.device_type != (DeviceType.CUDA if cuda else DeviceType.CPU):
             continue
         us = e.time_range.elapsed_us()
         if e.name.startswith(("Memcpy", "Memset")):
             copy_us += us
         else:
             by_name[e.name] += us
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    host_ms = host_s * 1e3 / frames
+    if not cuda:
+        # CPU ops nest, so their times are not summed into a device share
+        return dict(frames=frames, device="cpu", host_ms=host_ms,
+                    top_ops=[dict(name=n[:120], ms=us / 1e3 / frames)
+                             for n, us in ranked])
     kernel_ms = sum(by_name.values()) / 1e3 / frames
     copy_ms = copy_us / 1e3 / frames
-    host_ms = host_s * 1e3 / frames
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return dict(
         frames=frames, host_ms=host_ms, kernel_ms=kernel_ms,
         copy_ms=copy_ms,
@@ -70,6 +89,51 @@ def _breakdown(run, frames, trace_path=None, top=12):
                     if by_name else None),
         top_kernels=[dict(name=n[:120], ms=us / 1e3 / frames)
                      for n, us in ranked])
+
+
+def bench_scene_trace(args):
+    """The JAX app's workload (`--logdir`, `--steps`, `--width`,
+    `--height`): its bench scene, `--steps` renders and one train step
+    under the profiler, the chrome trace written to the log directory."""
+    import torch
+
+    from ..models.scene_graph import total_capacity
+    from ..render.renderer import RenderOptions, render_scene
+    from ..train.trainer import (Batch, OptimConfig, init_train_state,
+                                 make_train_step)
+    from ..utils.device import resolve_device
+    from ..utils.synthetic import make_cameras, make_scene
+
+    dev = resolve_device(args.device)
+    models, meta, arrays = make_scene(
+        n_background=20000, bkgd_capacity=32768, n_actors=2,
+        actor_capacity=2048, n_frames=4, device=dev)
+    cams = make_cameras(n_frames=4, width=args.width, height=args.height,
+                        device=dev)
+    options = RenderOptions(capacity=1 << 18)
+    gt = render_scene(models, meta, arrays, cams[0], active_sh_degree=1,
+                      options=options, device=dev).rgb
+    step = make_train_step(meta, arrays, OptimConfig(), options,
+                           total_capacity(models), device=dev)
+    state = init_train_state(models)
+    frame = [0]
+
+    def renders_and_step():
+        for i in range(args.steps):
+            render_scene(models, meta, arrays, cams[i % len(cams)],
+                         active_sh_degree=1, options=options, device=dev)
+        step(state, cams[0], Batch(gt_image=gt),
+             torch.Generator(device=dev).manual_seed(frame[0]), 1)
+        frame[0] += 1
+
+    os.makedirs(args.logdir, exist_ok=True)
+    path = os.path.join(args.logdir, "trace.json")
+    rec = _breakdown(renders_and_step, 1, path, device=dev)
+    print(json.dumps(dict(workload="bench_scene", renders=args.steps,
+                          train_steps=1, size=f"{args.width}x{args.height}",
+                          trace=path, **rec)), flush=True)
+    print(f"trace written to {args.logdir} (chrome://tracing or "
+          f"https://ui.perfetto.dev: {path})")
 
 
 def config_workloads(args, trace):
@@ -128,8 +192,22 @@ def main(argv=None):
     p.add_argument("--trace", default=None)
     p.add_argument("--config", default=None)
     p.add_argument("--cipv", type=int, default=-1)
+    # the JAX app's flags (its workload: `bench_scene_trace`)
+    p.add_argument("--logdir", default=None)
+    p.add_argument("--steps", type=int, default=None)
+    p.add_argument("--width", type=int, default=None)
+    p.add_argument("--height", type=int, default=None)
+    p.add_argument("--device", default=None,
+                   help="torch device of the JAX app's workload (default: "
+                        "cuda)")
     p.add_argument("opts", nargs=argparse.REMAINDER, default=[])
     args = p.parse_args(argv)
+    jax_flags = dict(logdir="PROF", steps=3, width=512, height=320)
+    if any(getattr(args, k) is not None for k in jax_flags):
+        for k, v in jax_flags.items():
+            if getattr(args, k) is None:
+                setattr(args, k, v)
+        return bench_scene_trace(args)
     if args.trace:
         os.makedirs(args.trace, exist_ok=True)
 

@@ -15,8 +15,20 @@ flags go before the `KEY VALUE` overrides.
     python -m gaussianrpg_tpu_torch.apps.train --synthetic --iterations 200
 
 trains the synthetic street scene (also when `source_path` is empty),
-with the same resume, checkpoints and PLYs. `--mesh` (multi-device
-training) is not ported yet.
+with the same resume, checkpoints and PLYs.
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m gaussianrpg_tpu_torch.apps.train --mesh N [--dist-backend gloo] ...
+
+trains either scene on an N-rank `data` mesh (the JAX app's `--mesh N`
+over N devices of one process; here N processes, one a rank): each rank
+renders a tile strip of every view, the gradients are summed over the
+ranks and every rank takes the same steps. Each rank's device is
+`cuda:LOCAL_RANK % device_count()` unless `--device` names one; NCCL
+(the default `--dist-backend`) needs one card a rank, gloo also runs
+several ranks on one card or on the CPU. Rank 0 alone prints, evaluates
+and writes the checkpoints, PLYs and TensorBoard logs. `--mesh N` outside
+an N-rank launch raises.
 
 `run_training` is the loop itself (overflow discard-and-retry, densify and
 prune, capacity growth, opacity reset, SH-degree upgrade, evaluation, the
@@ -24,6 +36,7 @@ per-iteration hook that writes checkpoints), shared with `chip_smoke.py`.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import statistics
 import time
@@ -202,7 +215,7 @@ def run_training(models, meta, arrays, cam_gt, ocfg: OptimConfig,
                  seed: int = SEED, test_iters=(), log_every: int = 50,
                  batches=None, state: TrainState | None = None,
                  start_it: int = 0, active_sh: int = 0, test_cam_gt=(),
-                 writer=None, on_step_end=None):
+                 writer=None, on_step_end=None, mesh=None):
     """The training loop over `cam_gt` [(camera, gt image [3, H, W] or
     None)]: one random view per iteration (views without an image are
     skipped), overflow discard-and-retry, the densify / capacity-growth /
@@ -211,7 +224,10 @@ def run_training(models, meta, arrays, cam_gt, ocfg: OptimConfig,
     iteration. `batches` holds each view's loss planes (Batch without the
     image); `state`, `start_it` and `active_sh` resume a checkpoint;
     `writer` is a TensorBoard writer or None; `on_step_end(it, state,
-    active_sh)` runs after every iteration (checkpoints, PLYs).
+    active_sh)` runs after every iteration (checkpoints, PLYs). With a
+    `mesh` (`parallel.sharded.Mesh`; every rank calls this with the same
+    arguments) the steps render tile strips over it and only the mesh's
+    first rank evaluates.
     Returns (state, record): per-iteration losses and host step times
     (synchronized), densify events, overflow retries, evaluations."""
     dev = resolve_device(device)
@@ -221,7 +237,8 @@ def run_training(models, meta, arrays, cam_gt, ocfg: OptimConfig,
     n_total = total_capacity(state.models)
 
     def make_step(o):
-        return make_train_step(meta, arrays, ocfg, o, n_total, device=dev)
+        return make_train_step(meta, arrays, ocfg, o, n_total, device=dev,
+                               mesh=mesh)
 
     step_fn = make_step(opts)
     max_sh = meta.bkgd_sh_degree
@@ -282,7 +299,7 @@ def run_training(models, meta, arrays, cam_gt, ocfg: OptimConfig,
                 and it % ocfg.opacity_reset_interval == 0):
             state = apply_opacity_reset(state, meta)
 
-        if it in set(test_iters) | {iters}:
+        if it in set(test_iters) | {iters} and (mesh is None or mesh.lead):
             for split, cams in (("test", test_cam_gt), ("train", cam_gt[:4])):
                 rep = evaluate_views(state.models, meta, arrays, cams, opts,
                                      active_sh, device=dev)
@@ -446,6 +463,26 @@ def resume(cfg, state: TrainState):
     return state2, start_it, sh
 
 
+def mesh_setup(n: int, backend: str, device=None):
+    """(mesh, device) of `--mesh n`: this rank's device, the process group
+    from the launcher's environment, and an n-rank `data` mesh. Raises
+    unless the launch has exactly n ranks."""
+    from ..parallel.distributed import (host_local_mesh_info, initialize,
+                                        local_device)
+    from ..parallel.sharded import make_mesh
+
+    dev = local_device(device)
+    if not initialize(backend):
+        raise RuntimeError(
+            f"--mesh {n} trains on {n} ranks, one process each: launch it "
+            f"with `python -m torch.distributed.run --nproc_per_node {n} -m "
+            "gaussianrpg_tpu_torch.apps.train --mesh ...`")
+    _, world, _ = host_local_mesh_info()
+    if world != n:
+        raise RuntimeError(f"--mesh {n}, but the launch has {world} ranks")
+    return make_mesh(), dev
+
+
 def main(argv=None):
     from ..config.config import load_config, make_argparser
 
@@ -454,29 +491,49 @@ def main(argv=None):
                         help="train the synthetic street scene")
     parser.add_argument("--iterations", type=int, default=None)
     parser.add_argument("--device", default=None,
-                        help="torch device (default: cuda)")
-    parser.add_argument("--mesh", type=int, default=0, metavar="N",
-                        help="multi-device training (not ported yet)")
+                        help="torch device (default: cuda; with --mesh, "
+                             "cuda:LOCAL_RANK)")
+    parser.add_argument(
+        "--mesh", type=int, default=0, metavar="N",
+        help="train with the render tile-strip-sharded over N ranks "
+             "(replicated parameters, gradients summed over the ranks); "
+             "launch with python -m torch.distributed.run "
+             "--nproc_per_node N")
+    parser.add_argument("--dist-backend", choices=("nccl", "gloo"),
+                        default="nccl",
+                        help="process-group backend of --mesh (nccl: one "
+                             "card a rank; gloo: CPU ranks, or ranks "
+                             "sharing a card)")
     args = parser.parse_args(argv)
-    dev = resolve_device(args.device)
+    mesh = None
     if args.mesh and args.mesh > 1:
-        raise NotImplementedError("--mesh: multi-device training is not "
-                                  "ported yet")
-    cfg = load_config(args.config, args.opts, mode="train")
-    iters = args.iterations or cfg.train.iterations
-    ocfg = optim_config(cfg)
-    test_iters = set(cfg.train.get("test_iterations", []))
-    t0 = time.time()
-    if args.synthetic or not cfg.source_path:
-        state, rec = train_synthetic(cfg, ocfg, iters, test_iters, dev)
+        mesh, dev = mesh_setup(args.mesh, args.dist_backend, args.device)
     else:
-        state, rec = train_waymo(cfg, ocfg, iters, test_iters, dev)
-    losses = rec["loss"]
-    summary = (f", first loss {losses[0]:.5f}, last loss {losses[-1]:.5f}, "
-               f"median step {rec['median_step_ms']:.2f} ms"
-               if losses else "")
-    print(f"done: {iters} iters in {time.time() - t0:.1f}s{summary}",
-          flush=True)
+        dev = resolve_device(args.device)
+    with contextlib.ExitStack() as stack:
+        if mesh is not None and not mesh.lead:
+            stack.enter_context(contextlib.redirect_stdout(
+                stack.enter_context(open(os.devnull, "w"))))
+        if mesh is not None:
+            print(f"training on a {args.mesh}-rank 'data' mesh "
+                  f"({args.dist_backend}, {dev})", flush=True)
+        cfg = load_config(args.config, args.opts, mode="train")
+        iters = args.iterations or cfg.train.iterations
+        ocfg = optim_config(cfg)
+        test_iters = set(cfg.train.get("test_iterations", []))
+        t0 = time.time()
+        train = (train_synthetic if args.synthetic or not cfg.source_path
+                 else train_waymo)
+        state, rec = train(cfg, ocfg, iters, test_iters, dev, mesh)
+        losses = rec["loss"]
+        summary = (f", first loss {losses[0]:.5f}, last loss "
+                   f"{losses[-1]:.5f}, median step "
+                   f"{rec['median_step_ms']:.2f} ms" if losses else "")
+        print(f"done: {iters} iters in {time.time() - t0:.1f}s{summary}",
+              flush=True)
+    if mesh is not None:
+        import torch.distributed as dist
+        dist.destroy_process_group()
     return state, rec
 
 
@@ -539,7 +596,17 @@ def _resumed(cfg, models, meta):
                              else 0)
 
 
-def train_synthetic(cfg, ocfg: OptimConfig, iters: int, test_iters, dev):
+def _outputs(cfg, iters: int, mesh, actor_names=None):
+    """(TensorBoard writer or None, per-iteration hook or None): the run's
+    outputs, written by the mesh's first rank alone."""
+    if mesh is not None and not mesh.lead:
+        return None, None
+    return (_make_writer(os.path.join(cfg.model_path, "tensorboard")),
+            checkpoint_writer(cfg, iters, actor_names))
+
+
+def train_synthetic(cfg, ocfg: OptimConfig, iters: int, test_iters, dev,
+                    mesh=None):
     """The synthetic branch of `main` (`train.py:200-226`): the scene at
     the config's SH degree and Fourier size, resume, and the checkpoints
     and PLYs of `checkpoint_writer`."""
@@ -548,18 +615,19 @@ def train_synthetic(cfg, ocfg: OptimConfig, iters: int, test_iters, dev):
         dev, sh_degree=gcfg.sh_degree,
         fourier_dim=gcfg.get("fourier_dim", FOURIER_DIM))
     state, start_it, active_sh = _resumed(cfg, models, meta)
-    writer = _make_writer(os.path.join(cfg.model_path, "tensorboard"))
+    writer, on_step_end = _outputs(cfg, iters, mesh)
     state, rec = run_training(
         models, meta, arrays, cam_gt, ocfg, opts, iters, device=dev,
         seed=cfg.seed, test_iters=test_iters, state=state, start_it=start_it,
-        active_sh=active_sh, writer=writer,
-        on_step_end=checkpoint_writer(cfg, iters))
+        active_sh=active_sh, writer=writer, on_step_end=on_step_end,
+        mesh=mesh)
     if writer is not None:
         writer.close()
     return state, rec
 
 
-def train_waymo(cfg, ocfg: OptimConfig, iters: int, test_iters, dev):
+def train_waymo(cfg, ocfg: OptimConfig, iters: int, test_iters, dev,
+                mesh=None):
     """The Waymo branch of `main`: scene, batches, resume, training with
     the checkpoints and PLYs of `checkpoint_writer`."""
     scene, models, meta, arrays, actor_names, cam_gt, opts = waymo_setup(
@@ -568,12 +636,12 @@ def train_waymo(cfg, ocfg: OptimConfig, iters: int, test_iters, dev):
     batches = view_batches(scene, cam_gt, cfg, dev)
     cam_gt = images_on(cam_gt, dev)
     state, start_it, active_sh = _resumed(cfg, models, meta)
-    writer = _make_writer(os.path.join(cfg.model_path, "tensorboard"))
+    writer, on_step_end = _outputs(cfg, iters, mesh, actor_names)
     state, rec = run_training(
         models, meta, arrays, cam_gt, ocfg, opts, iters, device=dev,
         seed=cfg.seed, test_iters=test_iters, batches=batches, state=state,
         start_it=start_it, active_sh=active_sh, test_cam_gt=test_cam_gt,
-        writer=writer, on_step_end=checkpoint_writer(cfg, iters, actor_names))
+        writer=writer, on_step_end=on_step_end, mesh=mesh)
     if writer is not None:
         writer.close()
     return state, rec

@@ -275,3 +275,22 @@ def compose(models: SceneModels, meta: SceneMeta, arrays: SceneArrays,
         semantics=torch.cat(parts["sem"]) if parts["sem"] else None,
         mask=torch.cat(parts["mask"]),
     )
+
+
+def submodel_slices(models: SceneModels, include_background=True):
+    """(name, start, size) ranges of the flattened arrays: the background,
+    each actor slot block `obj_<o>`, then the sky Gaussians."""
+    out = []
+    ofs = 0
+    if include_background:
+        b = models.background.capacity
+        out.append(("background", 0, b))
+        ofs = b
+    if models.actors is not None and models.actors.xyz.shape[0]:
+        o_cnt, a_cap = models.actors.xyz.shape[:2]
+        for o in range(o_cnt):
+            out.append((f"obj_{o}", ofs + o * a_cap, a_cap))
+        ofs += o_cnt * a_cap
+    if models.sky_gauss is not None and include_background:
+        out.append(("sky", ofs, models.sky_gauss.capacity))
+    return out

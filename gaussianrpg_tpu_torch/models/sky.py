@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 
@@ -115,3 +116,18 @@ def render_sky(sky: SkyCubeMap, camera,
     rgb += sky * (1 - acc))."""
     color = sample_cubemap(sky.cube_map, camera_rays(camera, perturb))
     return torch.clamp(color, 0.0, 1.0).permute(2, 0, 1)
+
+
+def cubemap_to_latlong(sky: SkyCubeMap, height: int = 512):
+    """LDR lat-long panorama [height, 2 * height, 3] as a numpy array (the
+    directions built in float64 numpy, sampled in float32)."""
+    width = height * 2
+    theta = (np.arange(height) + 0.5) / height * np.pi
+    phi = (np.arange(width) + 0.5) / width * 2 * np.pi - np.pi
+    t, p = np.meshgrid(theta, phi, indexing="ij")
+    dirs = np.stack(
+        [np.sin(t) * np.sin(p), -np.cos(t), np.sin(t) * np.cos(p)], axis=-1)
+    with torch.no_grad():
+        img = sample_cubemap(sky.cube_map, torch.as_tensor(
+            dirs.astype(np.float32), device=sky.cube_map.device))
+    return np.clip(img.cpu().numpy(), 0, 1)

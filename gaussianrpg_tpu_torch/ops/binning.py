@@ -66,6 +66,14 @@ class PairLists(NamedTuple):
             self.padded_total > self.capacity)
 
 
+def depth_order(pre) -> torch.Tensor:
+    """Stable (depth, id) order of a `Preprocessed` with culled Gaussians
+    at the end."""
+    key = torch.where(pre.radii > 0, pre.depths,
+                      torch.full_like(pre.depths, float("inf")))
+    return torch.argsort(key, stable=True)
+
+
 def tile_grid_dims(width: int, height: int, tile_x: int = TILE_X,
                    tile_y: int = TILE_Y) -> tuple[int, int]:
     return ((width + tile_x - 1) // tile_x, (height + tile_y - 1) // tile_y)

@@ -95,6 +95,17 @@ def quaternion_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     )
 
 
+def quaternion_invert(q: torch.Tensor) -> torch.Tensor:
+    """Conjugate of a unit quaternion."""
+    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype,
+                            device=q.device)
+
+
+def quaternion_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vectors v [..., 3] by unit quaternions q [..., 4]."""
+    return torch.einsum("...ij,...j->...i", quaternion_to_matrix(q), v)
+
+
 def quaternion_slerp(q0: torch.Tensor, q1: torch.Tensor, t) -> torch.Tensor:
     """Shortest-arc spherical interpolation with a lerp fallback for
     nearly parallel quaternions. The arccos is taken of a safe argument
@@ -119,6 +130,11 @@ def quaternion_slerp(q0: torch.Tensor, q1: torch.Tensor, t) -> torch.Tensor:
     return out / torch.linalg.norm(out, dim=-1, keepdim=True)
 
 
+def build_scaling_rotation(s: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """L = R @ diag(s): [..., 3, 3]."""
+    return quaternion_to_matrix(q) * s[..., None, :]
+
+
 def build_covariance(s: torch.Tensor, q: torch.Tensor,
                      scale_modifier=1.0) -> torch.Tensor:
     """World covariance R S^2 R^T packed as (xx, xy, xz, yy, yz, zz), from
@@ -135,6 +151,33 @@ def build_covariance(s: torch.Tensor, q: torch.Tensor,
          dot3(m1, m1), dot3(m1, m2), dot3(m2, m2)],
         dim=-1,
     )
+
+
+def strip_symmetric(sigma: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 3] symmetric -> packed [..., 6] (xx, xy, xz, yy, yz, zz)."""
+    return torch.stack(
+        [sigma[..., 0, 0], sigma[..., 0, 1], sigma[..., 0, 2],
+         sigma[..., 1, 1], sigma[..., 1, 2], sigma[..., 2, 2]],
+        dim=-1,
+    )
+
+
+def unpack_sym6(cov6: torch.Tensor) -> torch.Tensor:
+    """Packed [..., 6] -> full symmetric [..., 3, 3]."""
+    xx, xy, xz, yy, yz, zz = cov6.unbind(-1)
+    return torch.stack([torch.stack([xx, xy, xz], -1),
+                        torch.stack([xy, yy, yz], -1),
+                        torch.stack([xz, yz, zz], -1)], dim=-2)
+
+
+def se3_compose(R1, t1, R2, t2):
+    """(R1, t1) . (R2, t2): apply (R2, t2) first. Returns (R, t)."""
+    return R1 @ R2, torch.einsum("...ij,...j->...i", R1, t2) + t1
+
+
+def se3_inverse(R, t):
+    Rt = R.transpose(-1, -2)
+    return Rt, -torch.einsum("...ij,...j->...i", Rt, t)
 
 
 def l1_abs(x: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,9 @@
 """Rasterizer entry point: primitive stage -> depth order -> tile binning
 -> pair gather -> blend (kernel B forward, kernel C backward).
 
-Counterpart of `gaussianrpg_tpu/ops/rasterize.py` (without `model_axis`
-sharding): same field-column layout, same binning inputs on both the
-emission and the marker path, same outputs. As in JAX, train mode is
+Counterpart of `gaussianrpg_tpu/ops/rasterize.py`: same field-column
+layout, same binning inputs on both the emission and the marker path, same
+outputs. As in JAX, train mode is
 "gradient hooks given": `means2d_offset` (its gradient is the NDC-scale
 viewspace gradient) and `absgrad_sink` (its gradient is the AbsGS
 statistic, riding the F_RADIUS column). In train mode every pair gather
@@ -19,6 +19,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..parallel.collectives import Axis, gather_field_rows
 from ..utils.device import on_device, resolve_device
 from . import binning
 from .blend import NF_BASE, blend_pairs
@@ -519,6 +520,7 @@ def rasterize(
     tail_cap: int | None = None,
     big_cap: int | None = None,
     emit_k: int | None = None,
+    model_axis: Axis | None = None,
     device=None,
 ) -> RasterOut:
     """Render Gaussians, differentiable in every float input. means3d
@@ -528,19 +530,39 @@ def rasterize(
     `means2d_offset` [N,2] and `absgrad_sink` [N]: their gradients are
     the NDC viewspace gradient and the AbsGS statistic. `capacity` is the
     static padded pair capacity: check `overflow` and grow it. All tensors
-    must lie on `device` (CUDA unless given)."""
+    must lie on `device` (CUDA unless given).
+
+    `model_axis` (a mesh's `model` axis): shard the O(N) primitive stage
+    over the axis's ranks. Each runs it on its N / size slice of the
+    (replicated) inputs, the field rows are all-gathered in rank order
+    before the O(P) tile stage, and under autograd the gather's backward
+    is a reduce-scatter that hands each rank its slice's cotangents. N
+    must divide by the axis's size."""
     dev = resolve_device(device)
     if not on_device(means3d, dev):
         raise ValueError(f"rasterize: inputs on {means3d.device}, "
                          f"device is {dev}")
     train_mode = means2d_offset is not None or absgrad_sink is not None
+    per_g = dict(means3d=means3d, opacities=opacities.reshape(-1),
+                 colors=colors, shs=shs, semantics=semantics, scales=scales,
+                 rotations=rotations, cov3d_precomp=cov3d_precomp,
+                 means2d_offset=means2d_offset, absgrad_sink=absgrad_sink,
+                 active_mask=active_mask)
+    if model_axis is not None:
+        n = means3d.shape[0]
+        if n % model_axis.size:
+            raise ValueError(f"{n} Gaussians do not divide over a "
+                             f"{model_axis.size}-rank axis")
+        shard = n // model_axis.size
+        lo = model_axis.index * shard
+        per_g = {k: None if v is None else v[lo:lo + shard]
+                 for k, v in per_g.items()}
     fs = primitive_fields(
-        means3d, opacities, camera=camera, colors=colors, shs=shs,
-        sh_degree=sh_degree, semantics=semantics, scales=scales,
-        rotations=rotations, cov3d_precomp=cov3d_precomp,
-        scale_modifier=scale_modifier, means2d_offset=means2d_offset,
-        absgrad_sink=absgrad_sink, active_mask=active_mask,
-        tile_x=tile_x, tile_y=tile_y, tight_rect=tight_rect)
+        per_g.pop("means3d"), per_g.pop("opacities"), camera=camera,
+        sh_degree=sh_degree, scale_modifier=scale_modifier, tile_x=tile_x,
+        tile_y=tile_y, tight_rect=tight_rect, **per_g)
+    if model_axis is not None:
+        fs = gather_field_rows(fs, model_axis)
     return blend_fields(fs, width=camera.width, height=camera.height,
                         bg_color=bg_color, capacity=capacity,
                         train_mode=train_mode, sub_chunks=sub_chunks,

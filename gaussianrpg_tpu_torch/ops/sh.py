@@ -30,6 +30,10 @@ SH_C3 = (
 )
 
 
+def num_sh_coeffs(degree: int) -> int:
+    return (degree + 1) ** 2
+
+
 def eval_sh_basis(degree: int, dirs: torch.Tensor) -> torch.Tensor:
     """Real SH basis (degree 0..3) at unit directions: [..., 3] ->
     [..., (degree+1)^2]."""
@@ -79,6 +83,11 @@ def sh_to_rgb_clamped(degree: int, sh: torch.Tensor, dirs: torch.Tensor):
 def rgb_to_sh(rgb):
     """(rgb - 0.5) / C0; works on tensors and numpy arrays alike."""
     return (rgb - 0.5) / SH_C0
+
+
+def sh_to_rgb(sh):
+    """sh * C0 + 0.5, the inverse of `rgb_to_sh`."""
+    return sh * SH_C0 + 0.5
 
 
 def idft_basis(time: torch.Tensor, dim: int) -> torch.Tensor:

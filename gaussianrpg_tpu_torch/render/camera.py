@@ -163,3 +163,11 @@ def make_camera(
         cam_id=int(cam_id),
         meta=meta,
     )
+
+
+def camera_from_c2w(c2w: np.ndarray, K: np.ndarray, width: int, height: int,
+                    **kw) -> Camera:
+    """Camera from a camera->world pose (the inverse taken in float64);
+    keyword arguments go to `make_camera` (`device` among them)."""
+    w2c = np.linalg.inv(np.asarray(c2w, dtype=np.float64))
+    return make_camera(w2c[:3, :3].T, w2c[:3, 3], K, width, height, **kw)

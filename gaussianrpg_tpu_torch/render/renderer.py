@@ -20,6 +20,7 @@ from ..models.scene_graph import (SceneArrays, SceneMeta, SceneModels,
 from ..models.sky import render_sky
 from ..ops.rasterize import (primitive_fields, rasterize,
                              suggest_binning_sizes)
+from ..parallel.collectives import Axis
 from ..utils.device import resolve_device
 
 
@@ -48,6 +49,11 @@ class RenderOptions:
     tail_cap: int | None = None
     big_cap: int | None = None
     emit_k: int | None = None
+    # primitive (`model`) sharding: the O(N) primitive stage runs on this
+    # rank's slice of the axis and the field rows are all-gathered over it
+    # before the tile stage (`ops/rasterize.rasterize`; set by
+    # `parallel/sharded.render_scene_sharded` on a 2-axis mesh)
+    model_axis: Optional[Axis] = None
 
     def replace(self, **kw) -> "RenderOptions":
         return dataclasses.replace(self, **kw)
@@ -162,7 +168,8 @@ def _render(models, meta, arrays, camera, active_sh_degree, options,
         active_mask=scene.mask, capacity=options.capacity,
         tile_x=options.tile_x, tile_y=options.tile_y,
         sub_chunks=options.sub_chunks, tail_cap=options.tail_cap,
-        big_cap=options.big_cap, emit_k=options.emit_k, device=dev)
+        big_cap=options.big_cap, emit_k=options.emit_k,
+        model_axis=options.model_axis, device=dev)
 
     rgb = out.color
     acc = out.alpha

@@ -6,19 +6,28 @@ Counterpart of `gaussianrpg_tpu/sim/detector.py`:
     camera (ground-truth geometry, optional noise);
   * YoloDetector runs the YOLOv5 graph of sim/yolo.py (the JAX package's
     `JaxYoloDetector`), randomly initialized or from a checkpoint.
-The JAX package's `TorchHubYoloDetector` needs an external YOLOv5 checkout
-and weights and has no counterpart here.
+Both satisfy the `Detector` protocol the loop is written against. The JAX
+package's `TorchHubYoloDetector` needs an external YOLOv5 checkout and
+weights and has no counterpart here.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Protocol, runtime_checkable
 
 import numpy as np
 import torch
 
 from ..models.actor_pose import object_poses
 from ..ops.math3d import quaternion_to_matrix
+
+
+@runtime_checkable
+class Detector(Protocol):
+    def detect(self, image_chw: np.ndarray, camera) -> List[np.ndarray]:
+        """image [3, H, W] in [0, 1] -> list of (cx, cy, w, h) normalized
+        boxes of detected vehicles and pedestrians."""
+        ...
 
 
 @dataclass

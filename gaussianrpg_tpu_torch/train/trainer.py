@@ -1,14 +1,13 @@
 """Training step of the composite scene: render forward + backward, every
 loss term, Adam, densification statistics.
 
-Counterpart of `gaussianrpg_tpu/train/trainer.py` without `mesh` (the
-multi-device step is a later slice). The JAX step is one jitted function;
-here it is eager PyTorch: the learnables become leaf tensors, one
-`torch.autograd.grad` gives their gradients and those of the two hooks
-(the densification statistics), and the new state is built out of place,
-so a step that overflowed the pair capacity is simply not applied: the
-step reads the overflow flag (one host sync) before the backward and
-returns the state unchanged when it is set.
+Counterpart of `gaussianrpg_tpu/train/trainer.py`. The JAX step is one
+jitted function; here it is eager PyTorch: the learnables become leaf
+tensors, one `torch.autograd.grad` gives their gradients and those of the
+two hooks (the densification statistics), and the new state is built out
+of place, so a step that overflowed the pair capacity is simply not
+applied: the step reads the overflow flag (one host sync) before the
+backward and returns the state unchanged when it is set.
 """
 from __future__ import annotations
 
@@ -23,6 +22,7 @@ from ..models.corrections import (color_correction_reg_loss,
 from ..models.scene_graph import (SceneArrays, SceneMeta, SceneModels,
                                   actor_extents)
 from ..ops.math3d import exp_lr_schedule, l1_abs
+from ..parallel.sharded import render_scene_sharded
 from ..render.renderer import RenderOptions, render_scene
 from ..utils.tree import tree_leaves, tree_map, tree_unflatten
 from . import losses as L
@@ -329,12 +329,35 @@ def _clone_generator(gen: torch.Generator | None):
 
 
 def make_train_step(meta: SceneMeta, arrays: SceneArrays, cfg: OptimConfig,
-                    options: RenderOptions, n_total: int, device=None):
+                    options: RenderOptions, n_total: int, device=None,
+                    mesh=None):
     """The train step for one scene configuration:
     train_step(state, camera, batch, generator, active_sh_degree) ->
     (new_state, loss, scalars, result). `generator` draws the actor flip
     and the sky ray jitter. A step whose render overflowed the pair
-    capacity returns `state` itself (scalars["overflow"] is True)."""
+    capacity returns `state` itself (scalars["overflow"] is True).
+
+    `mesh` (a 1-axis or ("data", "model") `parallel.sharded.Mesh`; every
+    rank of it calls the step with the same state, camera, batch and
+    generator state) runs the same step with the render tile-strip-sharded
+    over the mesh (`parallel.sharded.render_scene_sharded`). Every rank
+    computes the loss on the global planes; the gradients of every
+    learnable leaf and of the two hooks that flow through the render are
+    summed over the whole mesh in one all-reduce, where they leave it (the
+    JAX package's psum of replicated inputs), and the loss's direct terms
+    (the regularizers) add theirs once on every rank. Adam, the statistics
+    and the caller's densify and prune then see the same numbers on every
+    rank, so the parameters stay replicated."""
+
+    def render(models, camera, generator, off, sink, active_sh_degree,
+               include_background=True):
+        kw = dict(active_sh_degree=active_sh_degree, options=options,
+                  include_background=include_background, train_mode=True,
+                  generator=generator, means2d_offset=off,
+                  absgrad_sink=sink, device=device)
+        if mesh is None:
+            return render_scene(models, meta, arrays, camera, **kw)
+        return render_scene_sharded(models, meta, arrays, camera, mesh, **kw)
 
     def train_step(state: TrainState, camera, batch: Batch,
                    generator: torch.Generator | None, active_sh_degree: int):
@@ -347,11 +370,7 @@ def make_train_step(meta: SceneMeta, arrays: SceneArrays, cfg: OptimConfig,
         sink = torch.zeros((n_total,), device=dev, requires_grad=True)
         models = _with_learnables(state.models, lrn_g)
         obj_gen = _clone_generator(generator)
-        res = render_scene(models, meta, arrays, camera,
-                           active_sh_degree=active_sh_degree, options=options,
-                           train_mode=True, generator=generator,
-                           means2d_offset=off, absgrad_sink=sink,
-                           device=device)
+        res = render(models, camera, generator, off, sink, active_sh_degree)
         op_parts = [models.background.opacity[:, 0]]
         if models.actors is not None:
             op_parts.append(models.actors.opacity[..., 0].reshape(-1))
@@ -366,14 +385,10 @@ def make_train_step(meta: SceneMeta, arrays: SceneArrays, cfg: OptimConfig,
             # the objects-only pass, through the training rasterizer (zero
             # hooks, one row per actor slot, whose gradients are not used)
             n_obj = models.actors.xyz.shape[0] * models.actors.xyz.shape[1]
-            res_obj = render_scene(
-                models, meta, arrays, camera,
-                active_sh_degree=active_sh_degree, options=options,
-                include_background=False, train_mode=True,
-                generator=obj_gen,
-                means2d_offset=torch.zeros((n_obj, 2), device=dev),
-                absgrad_sink=torch.zeros((n_obj,), device=dev),
-                device=device)
+            res_obj = render(models, camera, obj_gen,
+                             torch.zeros((n_obj, 2), device=dev),
+                             torch.zeros((n_obj,), device=dev),
+                             active_sh_degree, include_background=False)
             acc_obj = torch.clamp(res_obj.acc, 1e-6, 1 - 1e-6)
             ent = -(acc_obj * torch.log(acc_obj)
                     + (1 - acc_obj) * torch.log(1 - acc_obj))

@@ -3,12 +3,13 @@
 and apps on the CPU: the trainer writes a checkpoint the JAX package
 reads and resumes from it, with a config and with `--synthetic`; the
 simulator, on a checkpoint the JAX package wrote, prints the JAX app's
-verdict line; `--mesh` is refused."""
+verdict line; `--mesh` outside a launch is refused."""
 import json
 import shutil
 
 import numpy as np
 import pytest
+import torch
 
 jax = pytest.importorskip("jax")
 
@@ -225,6 +226,14 @@ def test_synthetic_train_cli_writes_checkpoints_and_resumes(tmp_path,
     assert (out / "trained_model" / "iteration_3.npz").exists()
 
 
-def test_train_cli_refuses_mesh():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tapp.main(["--device", "cpu", "--mesh", "2", "--synthetic"])
+def test_train_cli_refuses_mesh(monkeypatch):
+    """`--mesh 2` outside a 2-rank launch of `torch.distributed.run`
+    raises instead of training on one device (the mesh itself:
+    tests/test_torch_mesh_train.py)."""
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT",
+              "LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="torch.distributed.run"):
+        tapp.main(["--device", "cpu", "--mesh", "2", "--synthetic",
+                   "--dist-backend", "gloo"])
+    assert not torch.distributed.is_initialized()

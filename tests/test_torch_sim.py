@@ -81,9 +81,9 @@ def test_simulate_cli_prints_verdict_line(capsys):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, the data-preparation apps among them,
-    imports in a fresh interpreter without loading jax, flax, the JAX
-    package or Pillow (which the card lacks)."""
+    """Every module of the port, the data-preparation apps and the
+    multi-device layer among them, imports in a fresh interpreter without
+    loading jax, flax, the JAX package or Pillow (which the card lacks)."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import gaussianrpg_tpu_torch as pkg
@@ -95,12 +95,14 @@ def test_port_imports_no_jax():
                      if k.split(".")[0] in ("jax", "jaxlib", "flax",
                                             "gaussianrpg_tpu", "PIL"))
         assert not bad, bad
-        prep = ["data.native", "data.waymo_proto", "utils.waymo_record"] + [
+        prep = ["data.native", "data.waymo_proto", "utils.waymo_record",
+                "parallel.sharded", "parallel.distributed",
+                "parallel.collectives"] + [
             "apps." + a for a in (
                 "waymo_converter", "generate_lidar_depth",
                 "generate_sky_mask", "kitti_prep", "colmap_convert",
                 "colmap_triangulate", "generate_mono_depth",
-                "generate_mono_normal")]
+                "generate_mono_normal", "scaling_bench")]
         missing = [m for m in prep if pkg.__name__ + "." + m not in names]
         assert not missing, missing
         assert len(names) >= 20, names
