@@ -127,6 +127,19 @@ Phases, one JSON line each (any failure ends the run with exit code 1):
           in-process evaluations on the card (the apps' precision flags)
           and the CPU, the tape, the flat PLY and the viewer's frames
           (`phase_eval`);
+  ros2    the port's ROS2 node graph (`gaussianrpg_tpu_torch/ros2/`) on
+          phase waymo's trained scene, the nodes in one process under the
+          rclpy stand-in of `tests/torch_ros2.py` (no DDS): the inline
+          graph (simulator, ground truth, evaluation, AEB; box detector)
+          brakes to success and, without AEB, collides, each against
+          `run_closed_loop` on the same parameters (the graph's verdict,
+          ticks, frames and brakes as `expected_graph` pins them); the
+          separate graph (the simulator publishing 1600x1066 rgb8 images,
+          the object detector on seeded YOLOv5s weights) for 51 ticks,
+          each image equal to its render and each objects message to the
+          detector on the decoded image; host ms a rendered tick beside
+          the loop's; kernels B and A on the graph's first frame
+          (`phase_ros2`);
   prep    the data-preparation toolchain at one Waymo segment's widths
           (five cameras, 1920x1280 and 1920x886; a 64x2650 TOP LiDAR and
           four 200x600 short-range ones; 10 frames of ~198): phase
@@ -165,7 +178,8 @@ Phases, one JSON line each (any failure ends the run with exit code 1):
           (`phase_mesh`).
 The line before the last is the kernel table ({"kernels": [...]}: kernels
 A, B and C with their launches summed over the closed loop, perception
-(c)'s and (d)'s loops, train_frame, train, waymo, eval, prep and mesh
+(c)'s and (d)'s loops, train_frame, train, waymo, eval, ros2, prep and
+mesh
 runs (waymo's, eval's, prep's and mesh's counted in their subprocesses
 too), B's and C's times from
 the loop
@@ -1736,13 +1750,20 @@ def waymo_scene_dir(torch, root):
 
 
 LAUNCH_RUNNER = """
-import json, runpy, sys
+import json, os, runpy, sys
+out = os.environ.get("LAUNCH_STDOUT")
+if out:  # one file a rank: ranks sharing a pipe can split each other's lines
+    fd = os.open(os.path.join(out, "rank" + os.environ["RANK"] + ".txt"),
+                 os.O_WRONLY | os.O_CREAT | os.O_TRUNC)
+    os.dup2(fd, 1)
+    os.close(fd)
 from gaussianrpg_tpu_torch.ops import blend, scan
 sys.argv = sys.argv[1:]
 runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
 print("launches " + json.dumps({"blend_fwd": blend.launches,
                                  "cummax": scan.launches,
-                                 "blend_bwd": blend.bwd_launches}))
+                                 "blend_bwd": blend.bwd_launches}),
+      flush=True)
 """
 
 
@@ -1907,9 +1928,10 @@ def phase_waymo(torch, app_flags):
     checkpoint's size and save / load seconds; the first train view
     rendered from the checkpoint on the card against the CPU path at a
     quarter of its size. Then phase `eval` on the trained scene
-    (`phase_eval`, with the apps' TF32 flags `app_flags`); the directory
-    is deleted at the end. Returns (launches, the kernel checks' records
-    by kernel, phase eval's launches and records)."""
+    (`phase_eval`, with the apps' TF32 flags `app_flags`) and the node
+    graph on it (`phase_ros2`); the directory is deleted at the end.
+    Returns (launches, the kernel checks' records by kernel, phase eval's
+    launches and records, phase ros2's)."""
     import re
     import shutil
     import tempfile
@@ -2150,8 +2172,8 @@ def phase_waymo(torch, app_flags):
                       runs["resume"]["lines"]).get("median_step"),
                   loop_median_frame_ms=loop_ms, checkpoint_gb=nbytes / 1e9,
                   launches=launches, ok=True))
-        return launches, checks, phase_eval(torch, tmp, opts, cfg_obj,
-                                            evals, app_flags)
+        ev = phase_eval(torch, tmp, opts, cfg_obj, evals, app_flags)
+        return launches, checks, ev, phase_ros2(torch, tmp, opts)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2562,6 +2584,261 @@ def phase_eval(torch, tmp, opts, cfg_obj, trainer_evals, app_flags):
     emit(dict(phase="eval", seconds=time.time() - t_phase,
               launches=launches, ok=True))
     return launches, checks
+
+
+# ------------------------------------------------------------- phase ros2
+
+# The node graph's launch arguments on phase waymo's scene: the phase's
+# simulation time (WAYMO_SIM_TIME) and collision threshold (5.5 m), and
+# the AEB node's own default brake distance: the nodes range with a
+# mounting height of 2.115 m, where the phase's in-process loop passes
+# 1.1, so boxes range ~1.9x farther and 24 m brakes about where the
+# loop's 15 m does
+ROS_BRAKE = 24.0
+ROS_THRESHOLD = 5.5
+ROS_SEPARATE_TICKS = 51      # the separate graph's ticks (11 rendered)
+# the object detector's YOLOv5s weights: `yolo_state_dict` of this seed
+# detects ~200 boxes a frame on the phase's street, where phase waymo's
+# seed 0 detects none and would leave the objects check empty
+ROS_YOLO_SEED = 1
+
+
+class GraphRender:
+    """The render_fn the graphs' simulator node gets from `config_setup`:
+    the app's own (`fn`), with its first call's blends and kernel A's
+    fills recorded (`first`, for the kernel checks) and, while `keep` is a
+    list, each call's camera and image appended to it."""
+
+    def __init__(self, fn):
+        self.fn, self.first, self.keep = fn, None, None
+
+    def __call__(self, cam):
+        if self.first is None:
+            rgb, recorded, fills = recorded_kernels(lambda: self.fn(cam))
+            self.first = (recorded, fills)
+        else:
+            rgb = self.fn(cam)
+        if self.keep is not None:
+            self.keep.append((cam, rgb))
+        return rgb
+
+
+def phase_ros2(torch, tmp, opts):
+    """The port's ROS2 node graph (`gaussianrpg_tpu_torch/ros2/`) on phase
+    waymo's trained scene (1600x1066, its tape, lead LEAD_ID), the nodes
+    in one process under the rclpy stand-in of `tests/torch_ros2.py`
+    (FIFO delivery between timer ticks, no DDS), with the launch scripts'
+    arguments. The simulator node's `config_setup` runs once (its values
+    are shared by the three graphs' simulator nodes, which differ only in
+    `sim.separate_perception`). (1) The inline graph (simulator with the
+    box detector, ground truth, evaluation, AEB): with ROS_BRAKE it brakes
+    to success (a control_cmd at least), with brake distance 0 it
+    collides (none); each against `run_closed_loop` on the same
+    parameters (cam_height 2.115): the graph's record equals
+    `expected_graph` of the loop's (the verdict and brakes equal, the tick
+    and frame differences the CPU test pins). (2) The separate graph
+    (simulator with `sim.separate_perception True`, object detector on the
+    YOLOv5s weights of ROS_YOLO_SEED, ground truth, evaluation, AEB) for
+    ROS_SEPARATE_TICKS ticks: each front_image's bytes equal the uint8 of
+    the render of that tick's camera (whose translation is the cam_pose's
+    position), the first render again bit for bit; each objects message
+    equals the node's `YoloDetector.detect` plus its ranger on the decoded
+    image (boxes detected, which the seed ensures); the verdict is not
+    gated (random weights). (3) Kernel B against
+    its plain version on the first graph's first frame, kernel A bit for
+    bit on its fills. Kernels B and A are counted around each graph's
+    spin. Returns (launches, the kernel checks' records by kernel)."""
+    import numpy as np
+
+    from gaussianrpg_tpu_torch.apps import simulate
+    from gaussianrpg_tpu_torch.ros2 import (aeb_controller, evaluation,
+                                            groundtruth, object_detector,
+                                            simulator)
+    from gaussianrpg_tpu_torch.sim.loop import run_closed_loop
+    from gaussianrpg_tpu_torch.tools._timing import smi_line
+    from tests.torch_ros2 import (Ros2StandIn, expected_graph, graph_record,
+                                  loop_record)
+
+    t_phase = time.time()
+    card = smi_line()
+    tape_path = opts[opts.index("sim.traj_file_path") + 1]
+    track = os.path.join(opts[opts.index("source_path") + 1], "track",
+                         "track_info.txt")
+    sim_argv = ["simulator", "--config", "configs/waymo_149_1cam.yaml",
+                *opts]
+    sim_time = float(WAYMO_SIM_TIME)
+    weights = os.path.join(tmp, "yolov5s_ros2.pt")
+    torch.save(yolo_state_dict(torch, ROS_YOLO_SEED), weights)
+    launches = {"blend_fwd": 0, "cummax": 0, "blend_bwd": 0}
+    real_setup = simulate.config_setup
+    shared = {}
+
+    def shared_setup(cfg, cipv_id=-1, start_frame=0, device=None):
+        check(not cfg.sim.get("yolov5_weights_path"), "ros2",
+              "the graphs' simulator node was given YOLOv5 weights")
+        if not shared:
+            t0 = time.time()
+            vals = real_setup(cfg, cipv_id, start_frame, device)
+            shared["render"] = GraphRender(vals[1])
+            shared["vals"] = (vals[0], shared["render"], *vals[2:])
+            shared["seconds"] = time.time() - t0
+        return shared["vals"]
+
+    def graph(brake, separate=False, tick_limit=None):
+        """One graph under a fresh stand-in: (stand-in, launches of its
+        spin, spin seconds)."""
+        s = Ros2StandIn(tick_limit=tick_limit)
+        s.install()
+        simulate.config_setup = shared_setup
+        try:
+            s.start(aeb_controller.make_node, ["aeb_controller", str(brake)])
+            if separate:
+                s.start(object_detector.make_node,
+                        ["object_detector", weights])
+            s.start(groundtruth.make_node,
+                    ["groundtruth", tape_path, track, "0", str(LEAD_ID)])
+            s.start(simulator.make_node, sim_argv + (
+                ["sim.separate_perception", "True"] if separate else []))
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.time()
+            s.run_main(evaluation.main, ["evaluation", WAYMO_SIM_TIME,
+                                         str(ROS_THRESHOLD)])
+            torch.cuda.synchronize()
+            seconds = time.time() - t0
+            ln = launch_counts()
+        finally:
+            simulate.config_setup = real_setup
+            s.uninstall()
+        for k in launches:
+            launches[k] += ln[k]
+        return s, ln, seconds
+
+    def tick_ms(s, sync):
+        """Median host ms of the rendered ticks (each with the deliveries
+        it caused) and of the others."""
+        ts = s.tick_seconds
+        rendered = [ts[i] for i in range(0, len(ts), sync)]
+        other = [t for i, t in enumerate(ts) if i % sync]
+        return (statistics.median(rendered) * 1e3,
+                statistics.median(other) * 1e3 if other else None)
+
+    gt = groundtruth.load_cipv_tracklets(track, LEAD_ID)
+    # (1) the inline graph, with AEB and without, against the loop
+    for name, brake, verdict in (("inline", ROS_BRAKE, "success"),
+                                 ("inline without AEB", 0.0, "collision")):
+        s, ln, spin_s = graph(brake)
+        tape, render, det, cam0, _, v2c, _ = shared["vals"]
+        sync = int(round(tape["dynamic_freq"] / tape["image_freq"]))
+        t0 = time.time()
+        loop = run_closed_loop(
+            tape, render.fn, det, cam0, gt, start_frame=0,
+            brake_distance=brake, collision_threshold=ROS_THRESHOLD,
+            simulation_time=sim_time, ranger_extrinsic=v2c, cam_height=2.115)
+        loop_s = time.time() - t0
+        got, ref = graph_record(s), loop_record(loop)
+        want = expected_graph(ref, tape, sim_time)
+        rendered_ms, other_ms = tick_ms(s, sync)
+        ok = (got == want and got["verdict"] == ref["verdict"] == verdict
+              and bool(s.on("control_cmd")) == (brake > 0)
+              and ln["blend_fwd"] >= got["frames"]
+              and ln["cummax"] >= 2 * got["frames"])
+        emit(dict(phase="ros2", graph=name, brake_distance=brake,
+                  simulation_time=sim_time, threshold=ROS_THRESHOLD,
+                  cam_height=2.115, graph_record=got, expected=want,
+                  loop_record=ref, control_cmds=len(s.on("control_cmd")),
+                  launches=ln, rendered_tick_ms=rendered_ms,
+                  other_tick_ms=other_ms,
+                  loop_median_frame_ms=statistics.median(
+                      loop.frame_seconds) * 1e3,
+                  graph_spin_s=spin_s, loop_s=loop_s,
+                  graph_s_per_frame=spin_s / got["frames"],
+                  loop_s_per_frame=loop_s / ref["frames"],
+                  setup_s=shared["seconds"], card=card,
+                  transport="in-process stand-in, no DDS", ok=ok))
+        check(ok, "ros2", f"the {name} graph: {got}, expected {want} "
+              f"(the loop: {ref}), launches {ln}")
+
+    # (2) the separate graph: images and the object detector's messages
+    render = shared["render"]
+    render.keep = []
+    s, ln, spin_s = graph(ROS_BRAKE, separate=True,
+                          tick_limit=ROS_SEPARATE_TICKS)
+    kept, render.keep = render.keep, None
+    images, objects = s.on("front_image"), s.on("objects")
+    poses = {p.tick: p.msg for p in s.on("cam_pose")}
+    od = next(n for n in s.nodes if n.get_name() == "object_detector")
+    img_ok, pos_err = len(images) == len(kept) > 0, 0.0
+    for pub, (cam, rgb) in zip(images, kept):
+        p = poses[pub.tick].pose.pose.position
+        T = cam.viewmatrix[:3, 3].cpu().numpy()
+        pos_err = max(pos_err, float(np.abs(
+            T - np.float32([p.x, p.y, p.z])).max()))
+        img_ok &= (int(cam.frame) == pub.tick - 1
+                   and pub.msg.encoding == "rgb8"
+                   and pub.msg.step == 3 * pub.msg.width
+                   and bytes(pub.msg.data) == simulator.rgb8_bytes(rgb))
+    again = render.fn(kept[0][0])
+    img_ok &= simulator.rgb8_bytes(again) == bytes(images[0].msg.data)
+    t0 = time.perf_counter()
+    simulator.rgb8_bytes(kept[0][1])
+    convert_ms = (time.perf_counter() - t0) * 1e3
+    obj_err, n_boxes, n_poses = 0.0, 0, 0
+    obj_ok = len(objects) == len(images)
+    for pub, img in zip(objects, images):
+        boxes = od.det.detect(object_detector.decode_rgb8(img.msg), None)
+        n_boxes += len(boxes)
+        want = [od.ranger.distance(b) for b in boxes]
+        want = [(r, lat) for r, lat in want if r > 0]
+        got = [(q.position.x, q.position.y) for q in pub.msg.poses]
+        n_poses += len(got)
+        obj_ok &= pub.tick == img.tick and len(got) == len(want)
+        if got and len(got) == len(want):
+            obj_err = max(obj_err, float(np.abs(np.subtract(got,
+                                                            want)).max()))
+    obj_ok &= obj_err <= 1e-6 and n_boxes > 0
+    sync = int(round(shared["vals"][0]["dynamic_freq"]
+                     / shared["vals"][0]["image_freq"]))
+    rendered_ms, other_ms = tick_ms(s, sync)
+    cb = s.callback_seconds
+    sim_ticks = cb[("gaussian_rpg", "timer")]
+    ok = (img_ok and obj_ok and pos_err <= 1e-5
+          and ln["blend_fwd"] >= len(images)
+          and ln["cummax"] >= 2 * len(images))
+    emit(dict(phase="ros2", graph="separate", ticks=s.ticks,
+              ended_by=s.ended_by, record=graph_record(s),
+              front_images=len(images),
+              image_bytes=len(images[0].msg.data) if images else None,
+              image_size=f"{images[0].msg.width}x{images[0].msg.height}"
+              if images else None,
+              images_equal_renders=img_ok, camera_position_err=pos_err,
+              objects=len(objects), boxes_detected=n_boxes,
+              object_poses=n_poses,
+              objects_max_abs_err_m=obj_err, objects_tolerance_m=1e-6,
+              control_cmds=len(s.on("control_cmd")), launches=ln,
+              rendered_tick_ms=rendered_ms, other_tick_ms=other_ms,
+              simulator_rendered_tick_ms=statistics.median(
+                  sim_ticks[0::sync]) * 1e3,
+              detector_ms=statistics.median(
+                  cb[("object_detector", "front_image")]) * 1e3,
+              rgb8_convert_ms=convert_ms, graph_spin_s=spin_s, card=card,
+              weights=f"yolo_state_dict(seed {ROS_YOLO_SEED}): random, "
+                      "verdict not gated",
+              transport="in-process stand-in, no DDS", ok=ok))
+    check(ok, "ros2", "separate graph: front_image or objects differ from "
+          "the direct computation")
+    del kept, again, images, s, od
+
+    # (3) kernels B and A on the first graph's first frame
+    recorded, fills = render.first
+    render.first = None
+    recs = check_recorded_view(torch, recorded, fills,
+                               "ros2 graph first frame", "ros2")
+    del recorded, fills, render, shared["vals"], shared["render"]
+    torch.cuda.empty_cache()
+    emit(dict(phase="ros2", seconds=time.time() - t_phase, launches=launches,
+              card=card, ok=True))
+    return launches, {"blend_fwd": [recs[0]], "cummax": [recs[1]]}
 
 
 # ------------------------------------------------------------- phase prep
@@ -3301,20 +3578,30 @@ def run_launch(nproc, module, args, tmp, timeout=600):
     """`python -m torch.distributed.run --standalone --nproc_per_node
     nproc` of `module args` from the script's directory, through the
     launch-counting runner (every rank's launches summed): (returncode,
-    stdout lines, launches, seconds)."""
+    stdout lines, rank 0's first, launches, seconds). Each rank writes its
+    standard output to a file of its own, read after the launch ends."""
+    import tempfile
+
     runner = os.path.join(tmp, "launch_runner.py")
     with open(runner, "w") as f:
         f.write(LAUNCH_RUNNER)
+    out = tempfile.mkdtemp(prefix="stdout_", dir=tmp)
     here = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+    env = dict(os.environ, LAUNCH_STDOUT=out, PYTHONPATH=here + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
     t0 = time.time()
     proc = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc_per_node", str(nproc), runner, module, *args], cwd=here,
         env=env, capture_output=True, text=True, timeout=timeout)
+    texts = [proc.stdout]
+    for r in range(nproc):
+        path = os.path.join(out, f"rank{r}.txt")
+        if os.path.exists(path):
+            with open(path) as f:
+                texts.append(f.read())
     lines, launches = [], {"blend_fwd": 0, "cummax": 0, "blend_bwd": 0}
-    for ln in proc.stdout.strip().splitlines():
+    for ln in "\n".join(t.strip() for t in texts if t.strip()).splitlines():
         if ln.startswith("launches "):
             for k, v in json.loads(ln[len("launches "):]).items():
                 launches[k] += v
@@ -3504,10 +3791,11 @@ def main():
         runs.append(phase_perception(torch))
         train_launches, c = phase_train(torch)
         runs.append(train_launches)
-        waymo_launches, waymo, (eval_launches, ev) = phase_waymo(
-            torch, app_flags)
+        (waymo_launches, waymo, (eval_launches, ev),
+         (ros_launches, ros)) = phase_waymo(torch, app_flags)
         runs.append(waymo_launches)
         runs.append(eval_launches)
+        runs.append(ros_launches)
         prep_launches, prep = phase_prep(torch, smi)
         runs.append(prep_launches)
         mesh_launches, strip = phase_mesh(torch)
@@ -3521,11 +3809,13 @@ def main():
     errs_b = max(r["max_abs_err"]
                  for r in [b, *kout["blend_fwd"].values(),
                            *waymo["blend_fwd"], *ev["blend_fwd"],
-                           *prep["blend_fwd"], strip["blend_fwd"]])
+                           *ros["blend_fwd"], *prep["blend_fwd"],
+                           strip["blend_fwd"]])
     errs_c = max(r["max_abs_err"]
                  for r in [a_loop, c, *kout["cummax"].values(),
                            *waymo["cummax"], *ev["cummax"],
-                           *prep["cummax"], strip["cummax"]])
+                           *ros["cummax"], *prep["cummax"],
+                           strip["cummax"]])
     errs_d = max(r["max_abs_err"]
                  for r in [d, *kout["blend_bwd"].values(),
                            *waymo["blend_bwd"], *prep["blend_bwd"],

@@ -5,13 +5,14 @@ Counterpart of `gaussianrpg_tpu/sim/detector.py`:
   * BoxProjectionDetector projects the tracked actors' 3D boxes into the
     camera (ground-truth geometry, optional noise);
   * YoloDetector runs the YOLOv5 graph of sim/yolo.py (the JAX package's
-    `JaxYoloDetector`), randomly initialized or from a checkpoint.
-Both satisfy the `Detector` protocol the loop is written against. The JAX
-package's `TorchHubYoloDetector` needs an external YOLOv5 checkout and
-weights and has no counterpart here.
+    `JaxYoloDetector`), randomly initialized or from a checkpoint;
+  * TorchHubYoloDetector runs the model of an external YOLOv5 checkout
+    (its `attempt_load`, letterbox, NMS and `scale_coords`) on its weights.
+All satisfy the `Detector` protocol the loop is written against.
 """
 from __future__ import annotations
 
+import sys
 from dataclasses import dataclass
 from typing import List, Optional, Protocol, runtime_checkable
 
@@ -20,6 +21,7 @@ import torch
 
 from ..models.actor_pose import object_poses
 from ..ops.math3d import quaternion_to_matrix
+from ..utils.device import resolve_device
 
 
 @runtime_checkable
@@ -86,6 +88,74 @@ class BoxProjectionDetector:
 
 
 VEHICLE_CLASSES = (0, 1, 2, 3, 5, 7)  # COCO person, bicycle, car, ..., truck
+
+# the top-level packages of a YOLOv5 checkout that TorchHubYoloDetector
+# imports; it owns these names in sys.modules
+CHECKOUT_PACKAGES = ("models", "utils")
+
+
+@dataclass
+class TorchHubYoloDetector:
+    """YOLOv5 through a local checkout of its repository at `repo_path`
+    (`models.experimental.attempt_load`, `utils.augmentations.letterbox`,
+    `utils.general.non_max_suppression` / `scale_coords`) with the weights
+    at `weights_path`, on `device` (CUDA unless given). Counterpart of the
+    JAX package's `TorchHubYoloDetector` (`gaussianrpg_tpu/sim/detector.py:
+    103-152`): the same letterbox, NMS, `scale_coords` and class filter.
+
+    It owns the names `models` and `utils` (and their submodules) in
+    `sys.modules`: on the first `detect` it drops whatever held them, puts
+    `repo_path` first on `sys.path` while it imports the checkout, then
+    restores `sys.path`. The checkout's modules stay loaded (the model's
+    pickled classes live there); nothing else is left changed."""
+
+    repo_path: str
+    weights_path: str
+    img_size: int = 640
+    conf_thres: float = 0.25
+    iou_thres: float = 0.45
+    device: Optional[str] = None
+    _model: Optional[object] = None
+    _fns: Optional[tuple] = None
+    _dev: Optional[torch.device] = None
+
+    def _ensure(self):
+        if self._model is not None:
+            return
+        dev = resolve_device(self.device)
+        for name in [n for n in sys.modules
+                     if n.split(".")[0] in CHECKOUT_PACKAGES]:
+            del sys.modules[name]
+        saved = list(sys.path)
+        sys.path.insert(0, self.repo_path)
+        try:
+            from models.experimental import attempt_load
+            from utils.augmentations import letterbox
+            from utils.general import non_max_suppression, scale_coords
+            model = attempt_load(self.weights_path, map_location=dev)
+        finally:
+            sys.path[:] = saved
+        self._fns = (letterbox, non_max_suppression, scale_coords)
+        self._model = model.to(dev).eval()
+        self._dev = dev
+
+    def detect(self, image_chw, camera) -> List[np.ndarray]:
+        self._ensure()
+        letterbox, non_max_suppression, scale_coords = self._fns
+        H, W = image_chw.shape[1:]
+        img = (np.clip(image_chw, 0, 1) * 255).astype(np.uint8)
+        img = img.transpose(1, 2, 0)
+        lb = letterbox(img, self.img_size, stride=32, auto=False)[0]
+        x = torch.from_numpy(lb.transpose(2, 0, 1)[None].copy()).to(
+            self._dev).float() / 255.0
+        with torch.no_grad():
+            pred = self._model(x)[0]
+        det = non_max_suppression(pred, self.conf_thres, self.iou_thres)[0]
+        if det is None or not len(det):
+            return []
+        det[:, :4] = scale_coords(x.shape[2:], det[:, :4], (H, W, 3)).round()
+        return normalized_boxes([row for row in det.tolist()
+                                 if int(row[5]) in VEHICLE_CLASSES], H, W)
 
 
 @dataclass
