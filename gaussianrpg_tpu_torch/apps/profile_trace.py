@@ -16,8 +16,12 @@ With `--config`, two workloads of the configured scene instead:
                 loss planes, the scene and capacity as `apps.train
                 --config` trains them, from the latest checkpoint.
 Each line holds the host ms per frame (synchronized), the device ms per
-frame spent in kernels and in copies, the device's idle share, and the
-kernels that took the most device time:
+frame spent in kernels and in copies, the device's busy ms per frame (the
+union of its kernel, copy and set intervals, so work that overlaps on two
+streams counts once), its idle share (1 - busy / host), and the kernels
+that took the most device time. The chrome traces (`--trace`) carry the
+program's spans (`utils/spans.py`: `loop.*`, `pipeline.*`, `raster.*`)
+on the device records' clock:
 
     python -m gaussianrpg_tpu_torch.apps.profile_trace [--frames 5] \
         [--trace DIR]      # DIR/<workload>.json: chrome traces
@@ -39,6 +43,16 @@ import json
 import os
 import time
 from collections import defaultdict
+
+
+def _union_us(intervals) -> float:
+    """Length of the union of [start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
 
 
 def _breakdown(run, frames, trace_path=None, top=12, device="cuda"):
@@ -65,10 +79,12 @@ def _breakdown(run, frames, trace_path=None, top=12, device="cuda"):
         prof.export_chrome_trace(trace_path)
     by_name = defaultdict(float)
     copy_us = 0.0
+    busy = []
     for e in prof.events():
         if e.device_type != (DeviceType.CUDA if cuda else DeviceType.CPU):
             continue
         us = e.time_range.elapsed_us()
+        busy.append((e.time_range.start, e.time_range.end))
         if e.name.startswith(("Memcpy", "Memset")):
             copy_us += us
         else:
@@ -82,11 +98,11 @@ def _breakdown(run, frames, trace_path=None, top=12, device="cuda"):
                              for n, us in ranked])
     kernel_ms = sum(by_name.values()) / 1e3 / frames
     copy_ms = copy_us / 1e3 / frames
+    busy_ms = _union_us(busy) / 1e3 / frames
     return dict(
         frames=frames, host_ms=host_ms, kernel_ms=kernel_ms,
-        copy_ms=copy_ms,
-        idle_share=(1.0 - (kernel_ms + copy_ms) / host_ms
-                    if by_name else None),
+        copy_ms=copy_ms, busy_ms=busy_ms,
+        idle_share=1.0 - busy_ms / host_ms if by_name else None,
         top_kernels=[dict(name=n[:120], ms=us / 1e3 / frames)
                      for n, us in ranked])
 

@@ -11,6 +11,11 @@ goes through an autograd Function whose backward is the sort-free segment
 sum (`_PairGather`, `_PairGatherDerive`, `_PermTake`) instead of the
 `index_add_` scatter that autograd of `index_select` would use; the
 preprocess, SH and field assembly are differentiated by autograd.
+
+Under a profiler the stages record the spans `raster.fields`
+(`rasterize`'s primitive stage), `raster.sort` (depth order), `raster.bin`
+(tile binning), `raster.gather` (the pair gather) and `raster.blend`
+(utils/spans.py).
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import torch
 
 from ..parallel.collectives import Axis, gather_field_rows
 from ..utils.device import on_device, resolve_device
+from ..utils.spans import span
 from . import binning
 from .blend import NF_BASE, blend_pairs
 from .projection import TILE_X, TILE_Y, preprocess, transform_point_4x3
@@ -309,31 +315,36 @@ def pair_rows(
     H, W = height, width
     n, nf = fs.fields.shape
     dev = fs.fields.device
-    visible = fs.radii > 0
-    key = torch.where(visible, fs.depths.detach(),
-                      torch.full_like(fs.depths, float("inf")))
-    order = torch.argsort(key, stable=True)
     s_ch = fs.s_ch
     col0 = NF_BASE + s_ch
-
     ntx, nty = binning.tile_grid_dims(W, H, fs.tile_x, fs.tile_y)
-    if binning.emit_active(n, ntx * nty):
-        # emission path: the sort key carries each gaussian's depth rank,
-        # so the field table stays in original order
-        rank = torch.empty_like(order)
-        rank[order] = torch.arange(n, device=dev)
-        zero = torch.zeros_like(fs.rect_min)
-        rect_min = torch.where(visible[:, None], fs.rect_min, zero)
-        rect_max = torch.where(visible[:, None], fs.rect_max, zero)
-        # derive-gm: with 3 spare field columns the expansion index is
-        # rebuilt in the gather's backward instead of riding the sort
-        derive = (DERIVE_GM and train_mode and nf - col0 >= 3
-                  and ntx < 2048 and nty < 2048 and capacity < (1 << 24))
-        lists = binning.build_pair_lists(
-            rect_min, rect_max, visible, W, H, capacity, ride_gm=train_mode,
-            tile_x=fs.tile_x, tile_y=fs.tile_y, sub_chunks=sub_chunks,
-            rank=rank, tail_cap=tail_cap, big_cap=big_cap,
-            derive_gm=derive, emit_k=emit_k)
+    emit = binning.emit_active(n, ntx * nty)
+    with span("raster.sort"):
+        visible = fs.radii > 0
+        key = torch.where(visible, fs.depths.detach(),
+                          torch.full_like(fs.depths, float("inf")))
+        order = torch.argsort(key, stable=True)
+        if emit:
+            # emission path: the sort key carries each gaussian's depth
+            # rank, so the field table stays in original order
+            rank = torch.empty_like(order)
+            rank[order] = torch.arange(n, device=dev)
+
+    if emit:
+        with span("raster.bin"):
+            zero = torch.zeros_like(fs.rect_min)
+            rect_min = torch.where(visible[:, None], fs.rect_min, zero)
+            rect_max = torch.where(visible[:, None], fs.rect_max, zero)
+            # derive-gm: with 3 spare field columns the expansion index is
+            # rebuilt in the gather's backward instead of riding the sort
+            derive = (DERIVE_GM and train_mode and nf - col0 >= 3
+                      and ntx < 2048 and nty < 2048
+                      and capacity < (1 << 24))
+            lists = binning.build_pair_lists(
+                rect_min, rect_max, visible, W, H, capacity,
+                ride_gm=train_mode, tile_x=fs.tile_x, tile_y=fs.tile_y,
+                sub_chunks=sub_chunks, rank=rank, tail_cap=tail_cap,
+                big_cap=big_cap, derive_gm=derive, emit_k=emit_k)
         fields_sorted = fs.fields
         if derive and lists.pair_tile is not None:
             packed = torch.stack(
@@ -347,48 +358,54 @@ def pair_rows(
     else:
         # marker path: the tile rect rides the depth-sorted row take in the
         # field table's spare columns (or four appended ones)
-        rectf = torch.cat([fs.rect_min, fs.rect_max], dim=1).to(
-            fs.fields.dtype)
-        rectf = torch.where(visible[:, None], rectf, torch.zeros_like(rectf))
-        spare = nf - (NF_BASE + s_ch)
-        if spare >= 4:
-            rect_col = nf - 4
-            ext = torch.cat([fs.fields[:, :rect_col], rectf], dim=1)
-        else:
-            rect_col = nf
-            ext = torch.cat([fs.fields, rectf], dim=1)
-            pad = -ext.shape[1] % 8
-            if pad:
-                ext = torch.cat([ext, torch.zeros((n, pad), dtype=ext.dtype,
-                                                  device=dev)], dim=1)
-        if train_mode:
-            inv_order = torch.empty_like(order)
-            inv_order[order] = torch.arange(n, device=dev)
-            ext_sorted = _PermTake.apply(ext, order, inv_order)
-        else:
-            ext_sorted = ext.index_select(0, order)
-        rect_s = ext_sorted[:, rect_col:rect_col + 4].detach().to(
-            torch.int32)
-        rect_min_s, rect_max_s = rect_s[:, 0:2], rect_s[:, 2:4]
-        visible_s = (rect_max_s[:, 0] > rect_min_s[:, 0]) & (
-            rect_max_s[:, 1] > rect_min_s[:, 1])
-        fields_sorted = ext_sorted if spare >= 4 else ext_sorted[:, :nf]
-        lists = binning.build_pair_lists(
-            rect_min_s, rect_max_s, visible_s, W, H, capacity,
-            ride_gm=train_mode, tile_x=fs.tile_x, tile_y=fs.tile_y,
-            sub_chunks=sub_chunks)
+        with span("raster.sort"):
+            rectf = torch.cat([fs.rect_min, fs.rect_max], dim=1).to(
+                fs.fields.dtype)
+            rectf = torch.where(visible[:, None], rectf,
+                                torch.zeros_like(rectf))
+            spare = nf - (NF_BASE + s_ch)
+            if spare >= 4:
+                rect_col = nf - 4
+                ext = torch.cat([fs.fields[:, :rect_col], rectf], dim=1)
+            else:
+                rect_col = nf
+                ext = torch.cat([fs.fields, rectf], dim=1)
+                pad = -ext.shape[1] % 8
+                if pad:
+                    ext = torch.cat([ext, torch.zeros(
+                        (n, pad), dtype=ext.dtype, device=dev)], dim=1)
+            if train_mode:
+                inv_order = torch.empty_like(order)
+                inv_order[order] = torch.arange(n, device=dev)
+                ext_sorted = _PermTake.apply(ext, order, inv_order)
+            else:
+                ext_sorted = ext.index_select(0, order)
+            rect_s = ext_sorted[:, rect_col:rect_col + 4].detach().to(
+                torch.int32)
+            rect_min_s, rect_max_s = rect_s[:, 0:2], rect_s[:, 2:4]
+            visible_s = (rect_max_s[:, 0] > rect_min_s[:, 0]) & (
+                rect_max_s[:, 1] > rect_min_s[:, 1])
+            fields_sorted = ext_sorted if spare >= 4 else ext_sorted[:, :nf]
+        with span("raster.bin"):
+            lists = binning.build_pair_lists(
+                rect_min_s, rect_max_s, visible_s, W, H, capacity,
+                ride_gm=train_mode, tile_x=fs.tile_x, tile_y=fs.tile_y,
+                sub_chunks=sub_chunks)
 
-    src = torch.clamp(lists.pair_src, min=0)
-    valid = lists.pair_valid.to(fs.fields.dtype)
-    if train_mode and lists.pair_tile is not None:
-        gdata = _PairGatherDerive.apply(fields_sorted, src, valid,
-                                        lists.pair_tile, lists.seg_offs,
-                                        lists.seg_area, ntx, col0)
-    elif train_mode:
-        gdata = _PairGather.apply(fields_sorted, src, valid, lists.pair_gm,
-                                  lists.seg_offs, lists.seg_area)
-    else:
-        gdata = (_take8(fields_sorted, src) * valid[:, None]).contiguous()
+    with span("raster.gather"):
+        src = torch.clamp(lists.pair_src, min=0)
+        valid = lists.pair_valid.to(fs.fields.dtype)
+        if train_mode and lists.pair_tile is not None:
+            gdata = _PairGatherDerive.apply(fields_sorted, src, valid,
+                                            lists.pair_tile, lists.seg_offs,
+                                            lists.seg_area, ntx, col0)
+        elif train_mode:
+            gdata = _PairGather.apply(fields_sorted, src, valid,
+                                      lists.pair_gm, lists.seg_offs,
+                                      lists.seg_area)
+        else:
+            gdata = (_take8(fields_sorted, src) * valid[:, None]) \
+                .contiguous()
     return gdata, lists
 
 
@@ -413,9 +430,11 @@ def blend_fields(
                              capacity=capacity, train_mode=train_mode,
                              sub_chunks=sub_chunks, tail_cap=tail_cap,
                              big_cap=big_cap, emit_k=emit_k)
-    planes = blend_pairs(gdata, lists, bg_color.reshape(3).to(torch.float32),
-                         width=width, height=height, s_ch=s_ch,
-                         stat_width=stat_width, stat_height=stat_height)
+    with span("raster.blend"):
+        planes = blend_pairs(gdata, lists,
+                             bg_color.reshape(3).to(torch.float32),
+                             width=width, height=height, s_ch=s_ch,
+                             stat_width=stat_width, stat_height=stat_height)
     return RasterOut(
         color=planes[0:3],
         depth=planes[3:4],
@@ -557,10 +576,11 @@ def rasterize(
         lo = model_axis.index * shard
         per_g = {k: None if v is None else v[lo:lo + shard]
                  for k, v in per_g.items()}
-    fs = primitive_fields(
-        per_g.pop("means3d"), per_g.pop("opacities"), camera=camera,
-        sh_degree=sh_degree, scale_modifier=scale_modifier, tile_x=tile_x,
-        tile_y=tile_y, tight_rect=tight_rect, **per_g)
+    with span("raster.fields"):
+        fs = primitive_fields(
+            per_g.pop("means3d"), per_g.pop("opacities"), camera=camera,
+            sh_degree=sh_degree, scale_modifier=scale_modifier,
+            tile_x=tile_x, tile_y=tile_y, tight_rect=tight_rect, **per_g)
     if model_axis is not None:
         fs = gather_field_rows(fs, model_axis)
     return blend_fields(fs, width=camera.width, height=camera.height,

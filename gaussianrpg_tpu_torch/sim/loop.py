@@ -14,6 +14,7 @@ from typing import Callable, List, Optional
 import numpy as np
 
 from ..render.camera import Camera, make_camera
+from ..utils.spans import span
 from .nodes import (AebController, CarDynamics, Evaluation, GroundPlaneRanger,
                     GroundTruth)
 
@@ -55,7 +56,12 @@ def run_closed_loop(
     replacing render_fn + detector.detect: the fused inline-perception
     path (sim/pipeline.py). render_fn and detector may then be None, and
     `frame_seconds` times perceive_fn (render, perception and the copy of
-    the candidates to the host)."""
+    the candidates to the host).
+
+    Under a profiler each frame records the spans `loop.tick` (each of
+    its dynamics ticks), `loop.camera`, `loop.perceive` (perceive_fn, or
+    render_fn and the detector), `loop.range` and `loop.aeb`
+    (utils/spans.py)."""
     dyn = CarDynamics(tape=tape)
     sync_iters = int(round(tape.get("dynamic_freq", 50)
                            / tape.get("image_freq", 10)))
@@ -80,33 +86,38 @@ def run_closed_loop(
         (simulation_time + 2.0) * tape.get("dynamic_freq", 50))
 
     while ev.verdict is None and ticks < max_ticks:
-        pose = dyn.tick()
-        idx = dyn.idx - 1
-        cam_z = pose["position"][2]
-        aeb.on_pose(cam_z, dyn.timestamp)
-        d = gt.distance(idx, cam_z)
-        if d is not None:
-            min_gt = min(min_gt, d)
-            ev.on_distance(d, dyn.timestamp)
+        with span("loop.tick"):
+            pose = dyn.tick()
+            idx = dyn.idx - 1
+            cam_z = pose["position"][2]
+            aeb.on_pose(cam_z, dyn.timestamp)
+            d = gt.distance(idx, cam_z)
+            if d is not None:
+                min_gt = min(min_gt, d)
+                ev.on_distance(d, dyn.timestamp)
 
         if idx % sync_iters == 0 and ev.verdict is None:
-            cam = _camera_from_pose(camera_template, pose, idx,
-                                    dyn.timestamp)
-            t0 = time.perf_counter()
-            if perceive_fn is not None:
-                bboxes = perceive_fn(cam)
-                frame_seconds.append(time.perf_counter() - t0)
-            else:
-                img = np.asarray(render_fn(cam))
-                frame_seconds.append(time.perf_counter() - t0)
-                bboxes = detector.detect(img, cam)
-            objects = [ranger.distance(b) for b in bboxes]
-            objects = [(rng_, lat) for rng_, lat in objects if rng_ > 0]
-            brake = aeb.on_objects(objects)
-            dyn.on_control(brake)
-            log.append(dict(tick=idx, t=dyn.timestamp, gt_dist=d,
-                            n_det=len(bboxes), brake=brake,
-                            velocity=dyn.forward_velocity))
+            with span("loop.camera"):
+                cam = _camera_from_pose(camera_template, pose, idx,
+                                        dyn.timestamp)
+            with span("loop.perceive"):
+                t0 = time.perf_counter()
+                if perceive_fn is not None:
+                    bboxes = perceive_fn(cam)
+                    frame_seconds.append(time.perf_counter() - t0)
+                else:
+                    img = np.asarray(render_fn(cam))
+                    frame_seconds.append(time.perf_counter() - t0)
+                    bboxes = detector.detect(img, cam)
+            with span("loop.range"):
+                objects = [ranger.distance(b) for b in bboxes]
+                objects = [(rng_, lat) for rng_, lat in objects if rng_ > 0]
+            with span("loop.aeb"):
+                brake = aeb.on_objects(objects)
+                dyn.on_control(brake)
+                log.append(dict(tick=idx, t=dyn.timestamp, gt_dist=d,
+                                n_det=len(bboxes), brake=brake,
+                                velocity=dyn.forward_velocity))
         ticks += 1
 
     render_time = sum(frame_seconds)

@@ -17,6 +17,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from ..utils.spans import span
 from .yolo import (COCO_VEHICLE_PERSON, forward as yolo_forward,
                    letterbox_geometry, letterbox_tensor, nms_boxes,
                    scale_coords, xywh_to_xyxy)
@@ -61,7 +62,10 @@ class FusedStep:
     """One inline-perception frame. `device_step(camera, *scene_args)`
     renders, letterboxes, predicts and takes the top K on the device,
     returning the [K, 6] candidates there; calling the step does the same
-    and copies them to the host (numpy), the frame's one sync."""
+    and copies them to the host (numpy), the frame's one sync. Under a
+    profiler the stages record the spans `pipeline.render`,
+    `pipeline.letterbox`, `pipeline.yolo`, `pipeline.topk` and, around
+    the copy and the host's wait for it, `pipeline.fetch`."""
 
     def __init__(self, render_rgb, spec, params, size, k, classes,
                  predict_fn):
@@ -75,17 +79,24 @@ class FusedStep:
 
     @torch.no_grad()
     def device_step(self, camera, *scene_args) -> torch.Tensor:
-        img = self.render_rgb(camera, *scene_args)
-        boxed, _, _ = letterbox_device(img, self.size)
-        pred = self.predict_fn(self.spec, self.params, boxed[None])[0]
-        if self.classes is not None and not torch.is_tensor(self.classes):
-            # once: the copy to the card waits for the stream
-            self.classes = torch.tensor(list(self.classes),
-                                        device=pred.device)
-        return topk_candidates(pred, self.k, self.classes)
+        with span("pipeline.render"):
+            img = self.render_rgb(camera, *scene_args)
+        with span("pipeline.letterbox"):
+            boxed, _, _ = letterbox_device(img, self.size)
+        with span("pipeline.yolo"):
+            pred = self.predict_fn(self.spec, self.params, boxed[None])[0]
+        with span("pipeline.topk"):
+            if self.classes is not None \
+                    and not torch.is_tensor(self.classes):
+                # once: the copy to the card waits for the stream
+                self.classes = torch.tensor(list(self.classes),
+                                            device=pred.device)
+            return topk_candidates(pred, self.k, self.classes)
 
     def __call__(self, camera, *scene_args) -> np.ndarray:
-        return self.device_step(camera, *scene_args).cpu().numpy()
+        cand = self.device_step(camera, *scene_args)
+        with span("pipeline.fetch"):
+            return cand.cpu().numpy()
 
 
 def make_fused_step(render_rgb: Callable[..., torch.Tensor], spec, params,
@@ -114,13 +125,15 @@ def finish_detections(cand: np.ndarray, gain: float, pad: tuple,
                       iou_thres: float = 0.45,
                       max_det: int = 300) -> np.ndarray:
     """Host tail: [K, 6] candidates -> [M, 6] (xyxy in original image
-    pixels, conf, cls) after threshold + NMS + unletterbox."""
-    cand = np.asarray(cand)
-    cand = cand[cand[:, 4] > conf_thres]
-    if cand.shape[0] == 0:
-        return np.zeros((0, 6), np.float32)
-    det = nms_boxes(xywh_to_xyxy(cand), cand[:, 4], cand[:, 5], iou_thres,
-                    max_det)
-    if det.shape[0]:
-        det[:, :4] = scale_coords(det[:, :4], gain, pad, orig_hw)
-    return det
+    pixels, conf, cls) after threshold + NMS + unletterbox (the span
+    `pipeline.nms`)."""
+    with span("pipeline.nms"):
+        cand = np.asarray(cand)
+        cand = cand[cand[:, 4] > conf_thres]
+        if cand.shape[0] == 0:
+            return np.zeros((0, 6), np.float32)
+        det = nms_boxes(xywh_to_xyxy(cand), cand[:, 4], cand[:, 5],
+                        iou_thres, max_det)
+        if det.shape[0]:
+            det[:, :4] = scale_coords(det[:, :4], gain, pad, orig_hw)
+        return det
