@@ -54,16 +54,23 @@ Phases, one JSON line each (any failure ends the run with exit code 1):
   frame   one frozen-scene frame through `rasterize` at 64x32 (emission
           binning) and 16x16 (marker binning), each with two kernel A
           fills and one kernel B launch; per-frame ms, pair counts, launch
-          counts;
+          counts, all of replays of the render's CUDA graph, whose
+          counted launches must equal kernel A's and B's records in a
+          profiler trace (`CountedTrace`);
   train_frame  the bench train step (`rasterize` with both hooks, loss
           sum(color^2) + sum(depth^2)) on the frozen scene at both tilings:
           step ms, launches of kernels A, B and C, the pair-gather
           segment sum's error against float64, peak memory;
   loop    the closed loop (`apps.simulate` synthetic setup at 600k
           background Gaussians, 1066x1600, 16x16 tiles) for 3.5 s of
-          simulation: verdict, frames, median frame ms, AEB braking; then
-          kernels B and C against their plain versions, as in phase
-          kernel, on the pair lists of the loop's first frame (the main
+          simulation, under a profiler: verdict, frames, median frame
+          ms, AEB braking, how often the render's CUDA graph was
+          captured, replayed or run eagerly (`rasterize.graph_counts`),
+          and, from the third frame on (all replays), the launches of
+          kernels A and B counted against their records in the trace
+          (`CountedTrace`), which must agree; then kernels B and C
+          against their plain versions, as in phase kernel, on the pair
+          lists of the loop's first frame (the main
           path's own inputs: sigma 10-400 px at opacity 0.1, which the
           pair culling hardly thins, unlike the frozen scene's), the
           stripped forms of B (`tools/blend_floor`) there against their
@@ -181,7 +188,9 @@ A, B and C with their launches summed over the closed loop, perception
 (c)'s and (d)'s loops, train_frame, train, waymo, eval, ros2, prep and
 mesh
 runs (waymo's, eval's, prep's and mesh's counted in their subprocesses
-too), B's and C's times from
+too; a replay of the render's CUDA graph counts the launches its capture
+ran, which phases frame and loop hold to the profiler's kernel records),
+B's and C's times from
 the loop
 frame, A's from the trainer's capacity, their errors the largest over
 every shape checked; the five tool kernels with their
@@ -1011,7 +1020,8 @@ def phase_small_train(torch):
 
 
 def phase_frame(torch, kout):
-    """One frozen-scene frame through `rasterize` at both tilings."""
+    """One frozen-scene frame through `rasterize` at both tilings, timed
+    and counted once the render's CUDA graph is captured: five replays."""
     from gaussianrpg_tpu_torch.ops import blend, scan
     from gaussianrpg_tpu_torch.ops.rasterize import rasterize
 
@@ -1028,7 +1038,8 @@ def phase_frame(torch, kout):
                              tail_cap=sizes.tail_cap, big_cap=sizes.big_cap,
                              emit_k=sizes.emit_k, device="cuda")
 
-        out = frame()
+        frame()
+        out = frame()      # the second captures the render's CUDA graph
         torch.cuda.synchronize()
         blend.launches = scan.launches = 0
         times = []
@@ -1042,15 +1053,24 @@ def phase_frame(torch, kout):
             times.append(t0.elapsed_time(t1))
         launches = {"blend_fwd": blend.launches, "cummax": scan.launches}
         finite = bool(torch.isfinite(out.color).all())
-        # two running-max fills per frame on either binning path
+        with CountedTrace(torch) as counted:
+            for i in range(10):
+                if i == 5:
+                    counted.keep()
+                frame()
+        traced = counted.result
+        # two running-max fills per frame on either binning path, of five
+        # replays, as the trace's records say
         ok = (not bool(out.overflow) and finite
               and tuple(out.color.shape) == (3, H, W)
-              and launches["blend_fwd"] == 5
-              and launches["cummax"] == 5 * 2)
+              and launches == {"blend_fwd": 5, "cummax": 5 * 2}
+              and traced["ok"] and traced["counted"] == launches
+              and traced["graph_counts"] == dict(captures=0, eager=0,
+                                                 replays=5))
         emit(dict(phase="frame", tile=f"{tx}x{ty}",
                   ms=statistics.median(times), ms_all=times,
                   n_pairs=int(out.n_pairs), overflow=bool(out.overflow),
-                  finite=finite, launches=launches, ok=ok))
+                  finite=finite, launches=launches, traced=traced, ok=ok))
         check(ok, "frame", f"frame at {tx}x{ty} failed")
         colors_out[(tx, ty)] = out.color
     diff = (colors_out[(64, 32)] - colors_out[(16, 16)]).abs()
@@ -1074,6 +1094,71 @@ def reset_counts():
     from gaussianrpg_tpu_torch.ops import blend, scan
 
     blend.launches = blend.bwd_launches = scan.launches = 0
+
+
+class CountedTrace:
+    """Kernels B's and A's records in a profiler trace against what their
+    launch counters (`blend.launches`, `scan.launches`) and
+    `rasterize.graph_counts` advanced by over the same stretch. A replay
+    of the render's CUDA graph launches no kernel from the host: the
+    counters advance by what its capture ran, and this holds them to the
+    kernels the card ran. The trace can drop the first records after the
+    profiler starts (`tools/_timing.kernel_trace`), so what runs before
+    `keep()` is a warm-up step whose records it discards; what runs from
+    `keep()` to the end of the `with` block is kept. `result` (after the
+    block): records and counted launches of each kernel, the graph
+    counts, and `ok`, that they agree."""
+
+    NAMES = {"blend_fwd": "blend_fwd", "cummax": "cummax_lookback"}
+
+    def __init__(self, torch):
+        from torch.profiler import ProfilerActivity, profile, schedule
+
+        self.torch = torch
+        self.prof = profile(activities=[ProfilerActivity.CUDA],
+                            schedule=schedule(wait=0, warmup=1, active=1,
+                                              repeat=1))
+        self.result = None
+
+    def _counts(self):
+        from gaussianrpg_tpu_torch.ops.rasterize import graph_counts
+
+        c = launch_counts()
+        return {k: c[k] for k in self.NAMES}, dict(graph_counts)
+
+    def __enter__(self):
+        self.prof.__enter__()
+        self.start = self._counts()
+        return self
+
+    def keep(self):
+        self.torch.cuda.synchronize()
+        self.prof.step()
+        self.start = self._counts()
+
+    def __exit__(self, *exc):
+        self.torch.cuda.synchronize()
+        end = self._counts()
+        self.prof.step()
+        self.prof.__exit__(*exc)
+        if exc[0] is not None:
+            return False
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "trace.json")
+            self.prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        records = {k: sum(frag in n for n in kernels)
+                   for k, frag in self.NAMES.items()}
+        counted = {k: end[0][k] - self.start[0][k] for k in self.NAMES}
+        graphs = {k: v - self.start[1][k] for k, v in end[1].items()}
+        self.result = dict(records=records, counted=counted,
+                           graph_counts=graphs,
+                           ok=records == counted and counted["cummax"] > 0)
+        return False
 
 
 def seg_sum_error(torch, fs, W, H, sizes):
@@ -1193,7 +1278,9 @@ def phase_train_frame(torch, kout):
 def recorded_blends(run):
     """The pair rows, lists and blend arguments of each blend in `run()`,
     recorded from the tile stage's `pair_rows` and `blend_pairs` by
-    wrappers that call through: [(gdata, lists, bg, blend keywords)]."""
+    wrappers that call through: [(gdata, lists, bg, blend keywords)].
+    `run()` renders eagerly (`rasterize.eager`): a replay of the render's
+    CUDA graph calls neither."""
     from gaussianrpg_tpu_torch.ops import rasterize
 
     rows, blends = [], []
@@ -1210,7 +1297,8 @@ def recorded_blends(run):
     rasterize.pair_rows = recording_rows
     rasterize.blend_pairs = recording_blend
     try:
-        run()
+        with rasterize.eager():
+            run()
     finally:
         rasterize.pair_rows = orig_rows
         rasterize.blend_pairs = orig_blend
@@ -1266,6 +1354,7 @@ def phase_loop(torch):
     import numpy as np
 
     from gaussianrpg_tpu_torch.ops import blend
+    from gaussianrpg_tpu_torch.ops import rasterize as R
 
     from gaussianrpg_tpu_torch.apps.simulate import _synthetic_setup
     from gaussianrpg_tpu_torch.sim.loop import run_closed_loop
@@ -1278,6 +1367,8 @@ def phase_loop(torch):
     bad, cams = [], []
 
     def checked_render(cam):
+        if len(cams) == 2:         # eager, capture, then replays
+            counted.keep()
         img = render_fn(cam)
         cams.append(cam)
         if img.shape != (3, 1066, 1600) or not np.isfinite(img).all():
@@ -1285,21 +1376,27 @@ def phase_loop(torch):
         return img
 
     reset_counts()
-    res = run_closed_loop(tape, checked_render, det, cam0, gt,
-                          brake_distance=15.0, collision_threshold=5.5,
-                          simulation_time=3.5, ranger_extrinsic=v2c,
-                          cam_height=1.1)
+    graphs = dict(R.graph_counts)
+    with CountedTrace(torch) as counted:
+        res = run_closed_loop(tape, checked_render, det, cam0, gt,
+                              brake_distance=15.0, collision_threshold=5.5,
+                              simulation_time=3.5, ranger_extrinsic=v2c,
+                              cam_height=1.1)
+    traced = counted.result
     launches = launch_counts()
+    graphs = {k: v - graphs[k] for k, v in R.graph_counts.items()}
     braked = any(e["brake"] != 0.0 for e in res.log)
     ok = (res.verdict == "success" and braked and res.frames_rendered > 5
           and not bad and launches["blend_fwd"] > 0
-          and launches["cummax"] > 0)
+          and launches["cummax"] > 0 and traced["ok"]
+          and traced["graph_counts"] == dict(captures=0, eager=0,
+                                             replays=len(cams) - 2))
     emit(dict(phase="loop", verdict=res.verdict, ticks=res.ticks,
               frames=res.frames_rendered,
               median_frame_ms=statistics.median(res.frame_seconds) * 1e3,
               min_gt_distance=res.min_gt_distance, aeb_braked=braked,
               setup_s=setup_s, bad_frames=len(bad), launches=launches,
-              ok=ok))
+              graph_counts=graphs, traced=traced, ok=ok))
     check(ok, "loop", "closed loop failed")
     bg = torch.tensor([0.1, 0.2, 0.3], device="cuda")
     # the first frame as PR 4 recorded it (the loop's template camera),

@@ -56,9 +56,11 @@ def _union_us(intervals) -> float:
 
 
 def _breakdown(run, frames, trace_path=None, top=12, device="cuda"):
-    """Device ms by kernel over `frames` calls of `run` (after a warm-up
-    call). On the CPU (`device`) there is no device time: the line then
-    holds the host ms and the CPU ops that took the most time."""
+    """Device ms by kernel over `frames` calls of `run` (after two warm-up
+    calls: the second captures an eval render's CUDA graph, which the
+    profiled calls replay). On the CPU (`device`) there is no device
+    time: the line then holds the host ms and the CPU ops that took the
+    most time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -66,6 +68,7 @@ def _breakdown(run, frames, trace_path=None, top=12, device="cuda"):
     cuda = torch.device(device).type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     run()                                     # warm: builds, caches
+    run()                                     # the render's CUDA graph
     sync()
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                            if cuda else [])

@@ -15,7 +15,9 @@ preprocess, SH and field assembly are differentiated by autograd.
 Under a profiler the stages record the spans `raster.fields`
 (`rasterize`'s primitive stage), `raster.sort` (depth order), `raster.bin`
 (tile binning), `raster.gather` (the pair gather) and `raster.blend`
-(utils/spans.py).
+(utils/spans.py). An eval call on the card replays one CUDA graph of the
+whole path (ops/raster_graph.py): it records one span, `raster.graph`,
+and none of those.
 """
 from __future__ import annotations
 
@@ -27,7 +29,8 @@ import torch
 from ..parallel.collectives import Axis, gather_field_rows
 from ..utils.device import on_device, resolve_device
 from ..utils.spans import span
-from . import binning
+from . import binning, raster_graph
+from .raster_graph import eager, graph_counts  # noqa: F401  (re-exported)
 from .blend import NF_BASE, blend_pairs
 from .projection import TILE_X, TILE_Y, preprocess, transform_point_4x3
 from .sh import sh_to_rgb_clamped
@@ -556,11 +559,26 @@ def rasterize(
     (replicated) inputs, the field rows are all-gathered in rank order
     before the O(P) tile stage, and under autograd the gather's backward
     is a reduce-scatter that hands each rank its slice's cotangents. N
-    must divide by the axis's size."""
+    must divide by the axis's size.
+
+    An eval call on the card runs through one CUDA graph of the whole
+    path, captured on the second consecutive call with the same key and
+    replayed after (ops/raster_graph.py): same kernels, same outputs,
+    each returned tensor the caller's own."""
+    call = {k: v for k, v in locals().items() if k != "device"}
     dev = resolve_device(device)
     if not on_device(means3d, dev):
         raise ValueError(f"rasterize: inputs on {means3d.device}, "
                          f"device is {dev}")
+    return raster_graph.run(call, dev, _rasterize)
+
+
+def _rasterize(*, means3d, opacities, camera, bg_color, colors, shs,
+               sh_degree, semantics, scales, rotations, cov3d_precomp,
+               scale_modifier, means2d_offset, absgrad_sink, active_mask,
+               capacity, tile_x, tile_y, tight_rect, sub_chunks, tail_cap,
+               big_cap, emit_k, model_axis) -> RasterOut:
+    """The eager path of `rasterize` (its arguments but `device`)."""
     train_mode = means2d_offset is not None or absgrad_sink is not None
     per_g = dict(means3d=means3d, opacities=opacities.reshape(-1),
                  colors=colors, shs=shs, semantics=semantics, scales=scales,

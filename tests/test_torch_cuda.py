@@ -703,12 +703,15 @@ def test_fused_step_waits_for_the_card_only_at_its_copy(cuda, tx, ty, emit,
     """The fused step's device part (render through `rasterize` on either
     binning path, letterbox, YOLOv5s, top-K) makes no host sync: under
     torch's sync debug mode it raises no warning once warmed up, so the
-    copy of the [K, 6] candidates is the frame's one wait."""
+    copy of the [K, 6] candidates is the frame's one wait. Warmed up means
+    the render's CUDA graph captured (the second call), so the armed call
+    replays it."""
     import warnings
 
     monkeypatch.setattr(binning, "EMIT_PAIRS", emit)
 
-    from gaussianrpg_tpu_torch.ops.rasterize import suggest_binning_sizes
+    from gaussianrpg_tpu_torch.ops.rasterize import (graph_counts,
+                                                     suggest_binning_sizes)
     from gaussianrpg_tpu_torch.sim import pipeline, yolo
 
     W, H = 320, 192
@@ -730,7 +733,9 @@ def test_fused_step_waits_for_the_card_only_at_its_copy(cuda, tx, ty, emit,
         render, spec, yolo.init_params(spec, 0, device=cuda), (H, W),
         size=(192, 320), k=64)
     first = step(cam)
+    np.testing.assert_array_equal(step(cam), first)
     torch.cuda.synchronize()
+    replays = graph_counts["replays"]
     # armed outside the record: the first arming in a process warns once
     # from the call that arms it
     torch.cuda.set_sync_debug_mode("warn")
@@ -750,6 +755,7 @@ def test_fused_step_waits_for_the_card_only_at_its_copy(cuda, tx, ty, emit,
 
     assert not syncs(seen), syncs(seen)
     assert syncs(control)
+    assert graph_counts["replays"] == replays + 1
     np.testing.assert_array_equal(cand.cpu().numpy(), first)
 
 
@@ -757,20 +763,26 @@ def test_fused_step_waits_for_the_card_only_at_its_copy(cuda, tx, ty, emit,
 def test_render_app_on_card_matches_cpu(cuda, tmp_path):
     """`apps.render` on the synthetic scene (as built: no checkpoint) on
     the card and on the CPU: the same files, PNGs within 1/255; both
-    launch their kernels only on the card."""
+    launch their kernels only on the card: kernel B once a frame, and
+    once more for each capture of the render's CUDA graph (its warm-up
+    run)."""
     import os
 
     from gaussianrpg_tpu_torch.apps import render
     from gaussianrpg_tpu_torch.data.image_io import read_png
+    from gaussianrpg_tpu_torch.ops.rasterize import graph_counts
 
     outs = {}
     for dev in ("cuda", "cpu"):
         out = tmp_path / dev
         before = blend.launches
+        captures = graph_counts["captures"]
         render.main(["--device", dev, "model_path", str(out),
                      "render.save_video", "False"])
-        outs[dev] = (out / "evaluate_train", blend.launches - before)
-    assert outs["cuda"][1] == 10 and outs["cpu"][1] == 0
+        outs[dev] = (out / "evaluate_train", blend.launches - before,
+                     graph_counts["captures"] - captures)
+    assert outs["cuda"][1] == 10 + outs["cuda"][2] and outs["cpu"][1] == 0
+    assert outs["cpu"][2] == 0
     names = sorted(os.listdir(outs["cuda"][0]))
     assert names == sorted(os.listdir(outs["cpu"][0])) and len(names) == 10
     for n in names:
