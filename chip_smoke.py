@@ -2866,12 +2866,17 @@ def phase_ros2(torch, tmp, opts):
     poses = {p.tick: p.msg for p in s.on("cam_pose")}
     od = next(n for n in s.nodes if n.get_name() == "object_detector")
     img_ok, pos_err = len(images) == len(kept) > 0, 0.0
+    sync = int(round(shared["vals"][0]["dynamic_freq"]
+                     / shared["vals"][0]["image_freq"]))
+    # a rendered tick shows the template's image frame plus the image
+    # periods elapsed (`sim/loop._camera_from_pose`)
+    frame0 = int(shared["vals"][3].frame)
     for pub, (cam, rgb) in zip(images, kept):
         p = poses[pub.tick].pose.pose.position
         T = cam.viewmatrix[:3, 3].cpu().numpy()
         pos_err = max(pos_err, float(np.abs(
             T - np.float32([p.x, p.y, p.z])).max()))
-        img_ok &= (int(cam.frame) == pub.tick - 1
+        img_ok &= (int(cam.frame) == frame0 + (pub.tick - 1) // sync
                    and pub.msg.encoding == "rgb8"
                    and pub.msg.step == 3 * pub.msg.width
                    and bytes(pub.msg.data) == simulator.rgb8_bytes(rgb))
@@ -2894,8 +2899,6 @@ def phase_ros2(torch, tmp, opts):
             obj_err = max(obj_err, float(np.abs(np.subtract(got,
                                                             want)).max()))
     obj_ok &= obj_err <= 1e-6 and n_boxes > 0
-    sync = int(round(shared["vals"][0]["dynamic_freq"]
-                     / shared["vals"][0]["image_freq"]))
     rendered_ms, other_ms = tick_ms(s, sync)
     cb = s.callback_seconds
     sim_ticks = cb[("gaussian_rpg", "timer")]

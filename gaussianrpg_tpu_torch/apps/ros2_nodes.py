@@ -125,6 +125,7 @@ def run_simulator_node(tape, render_fn, detector, camera_template,
                     camera_template.extrinsic.cpu().numpy()),
                 width=camera_template.width,
                 height=camera_template.height)
+            self.frame0 = int(camera_template.frame)
             self.timer = self.create_timer(self.dyn.dt, self.tick)
 
         def on_cmd(self, msg):
@@ -146,7 +147,8 @@ def run_simulator_node(tape, render_fn, detector, camera_template,
             self.pub_pose.publish(msg)
 
             if idx % self.sync == 0:
-                cam = _camera_from_pose(camera_template, pose, idx,
+                cam = _camera_from_pose(camera_template, pose,
+                                        self.frame0 + idx // self.sync,
                                         self.dyn.timestamp)
                 img = np.asarray(render_fn(cam))
                 self.pub_obj.publish(pose_array(

@@ -54,10 +54,9 @@ def _synthetic_setup(width=512, height=320, ego_speed=8.0,
 def config_setup(cfg, cipv_id: int = -1, start_frame: int = 0,
                  device=None):
     """Trained-scene setup (reference `simulator.py:77-161`): the scene with
-    its latest checkpoint, the tape of `cfg.sim.traj_file_path`, and the
-    box-projection detector or, when `cfg.sim.yolov5_weights_path` exists,
-    YOLOv5 (fused into one step with the render unless
-    `sim.separate_perception` or not `sim.fused_perception`). Returns the
+    its latest checkpoint, the tape of `cfg.sim.traj_file_path` and the
+    training cameras read from disk, the closed loop built on them
+    (`loop_setup`), and the CIPV's tracklets. Returns the
     `run_closed_loop` arguments (tape, render_fn, detector,
     camera_template, gt_tracklets, vehicle->camera extrinsic,
     perceive_fn); perceive_fn is None unless the step is fused. Raises
@@ -65,10 +64,6 @@ def config_setup(cfg, cipv_id: int = -1, start_frame: int = 0,
     from ..data.waymo import WaymoScene
     from ..models.scene_builder import build_scene_from_waymo
     from ..models.scene_io import load_latest_checkpoint
-    from ..render.renderer import (options_from_cfg, probe_scene_capacity,
-                                   render_scene, render_until_fit)
-    from ..sim.detector import (VEHICLE_CLASSES, BoxProjectionDetector,
-                                YoloDetector)
     from ..sim.tape import load_tape
     from ..utils.device import resolve_device
 
@@ -82,14 +77,55 @@ def config_setup(cfg, cipv_id: int = -1, start_frame: int = 0,
     models = load_latest_checkpoint(cfg.trained_model_dir, models)
     tape = load_tape(cfg.sim.traj_file_path)
     cams = scene.build_cameras("train", device=dev)
-    cam0 = cams[0][0]
+    # the training cameras probe the capacity: the tape replays their poses
+    loop = loop_setup(models, meta, arrays, [c for c, _ in cams], tape, cfg,
+                      device=dev)
 
+    if cipv_id >= 0:
+        tracklets = {}
+        with open(os.path.join(cfg.source_path, "track",
+                               "track_info.txt")) as f:
+            rows = f.read().splitlines()[1:]
+        for row in rows:
+            t = row.split()
+            if int(t[1]) == cipv_id:
+                tracklets[int(t[0])] = (float(t[7]), float(t[8]),
+                                        float(t[9]))
+    else:
+        tracklets = {0: (1e9, 0.0, 0.0)}  # no CIPV: distance never trips
+    return (tape, loop["render_fn"], loop["detector"],
+            loop["camera_template"], tracklets, loop["ranger_extrinsic"],
+            loop["perceive_fn"])
+
+
+def loop_setup(models, meta, arrays, cameras, tape, cfg,
+               device=None) -> dict:
+    """The closed loop on a built scene (reference `simulator.py:101-161`):
+    the pair capacity probed over `cameras` at slack 1.3 (with
+    `cfg.render.autosize`, the default), a render function that grows the
+    capacity on overflow (`render_until_fit`) and copies the image to the
+    host (span `scene.fetch`), the box-projection detector or, when
+    `cfg.sim.yolov5_weights_path` exists, YOLOv5 (fused into one step with
+    the render unless `sim.separate_perception` or not
+    `sim.fused_perception`), and the ranging extrinsic, the inverse of
+    the first camera's camera->vehicle extrinsic. Returns
+    `run_closed_loop`'s keyword arguments: tape, render_fn, detector,
+    camera_template (the first camera), ranger_extrinsic, perceive_fn
+    (None unless the step is fused)."""
+    from ..render.renderer import (options_from_cfg, probe_scene_capacity,
+                                   render_scene, render_until_fit)
+    from ..sim.detector import (VEHICLE_CLASSES, BoxProjectionDetector,
+                                YoloDetector)
+    from ..utils.device import resolve_device
+    from ..utils.spans import span
+
+    dev = resolve_device(device)
+    cam0 = cameras[0]
     options = options_from_cfg(cfg.render)
     if cfg.render.get("autosize", True):
-        # probe with the training cameras (the tape replays their poses);
-        # extra slack for tape poses pushed past the training range
+        # extra slack for tape poses pushed past the probed cameras' range
         sized = probe_scene_capacity(
-            models, meta, arrays, [c for c, _ in cams],
+            models, meta, arrays, cameras,
             active_sh_degree=meta.bkgd_sh_degree, options=options,
             slack=1.3)
         print(f"pair capacity right-sized to {sized.capacity} "
@@ -104,7 +140,8 @@ def config_setup(cfg, cipv_id: int = -1, start_frame: int = 0,
             lambda o: render_scene(models, meta, arrays, cam,
                                    active_sh_degree=meta.bkgd_sh_degree,
                                    options=o, device=dev), options)
-        return res.rgb.cpu().numpy()
+        with span("scene.fetch"):
+            return res.rgb.cpu().numpy()
 
     weights = cfg.sim.get("yolov5_weights_path", "")
     perceive_fn = None
@@ -141,21 +178,10 @@ def config_setup(cfg, cipv_id: int = -1, start_frame: int = 0,
     else:
         detector = BoxProjectionDetector(arrays=arrays,
                                          actor_pose=models.actor_pose)
-
-    if cipv_id >= 0:
-        tracklets = {}
-        with open(os.path.join(cfg.source_path, "track",
-                               "track_info.txt")) as f:
-            rows = f.read().splitlines()[1:]
-        for row in rows:
-            t = row.split()
-            if int(t[1]) == cipv_id:
-                tracklets[int(t[0])] = (float(t[7]), float(t[8]),
-                                        float(t[9]))
-    else:
-        tracklets = {0: (1e9, 0.0, 0.0)}  # no CIPV: distance never trips
-    v2c = np.linalg.inv(cam0.extrinsic.cpu().numpy())
-    return tape, render_fn, detector, cam0, tracklets, v2c, perceive_fn
+    return dict(tape=tape, render_fn=render_fn, detector=detector,
+                camera_template=cam0,
+                ranger_extrinsic=np.linalg.inv(cam0.extrinsic.cpu().numpy()),
+                perceive_fn=perceive_fn)
 
 
 def main(argv=None):

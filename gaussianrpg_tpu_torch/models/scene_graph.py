@@ -17,6 +17,7 @@ import torch
 from ..ops.math3d import (matrix_to_quaternion, quaternion_multiply,
                           quaternion_to_matrix)
 from ..ops.sh import idft_basis, sh_to_rgb_clamped
+from ..utils.spans import span
 from . import gaussians as G
 from .actor_pose import ActorPose, object_poses
 from .corrections import (ColorCorrection, PoseCorrection,
@@ -27,6 +28,11 @@ from .sky import SkyCubeMap
 # symmetry flip
 FLIP_QUAT = (0.0, 0.0, 1.0, 0.0)
 FLIP_AXIS = 1
+
+# what `compose` has flattened since the process started, from shapes the
+# host knows (no device read): calls, slots (the composed arrays' length,
+# inactive slots and actors not alive included) and actor models
+compose_counts = {"frames": 0, "slots": 0, "actors": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,7 +161,22 @@ def compose(models: SceneModels, meta: SceneMeta, arrays: SceneArrays,
             train_mode: bool = False) -> ComposedScene:
     """Flatten all sub-models into single arrays for one camera. In train
     mode with `meta.flip_prob > 0`, the `flip` generator draws each actor
-    Gaussian's symmetry flip."""
+    Gaussian's symmetry flip. Under a profiler the call is the span
+    `scene.compose`; each call advances `compose_counts`."""
+    with span("scene.compose"):
+        scene = _compose(models, meta, arrays, camera, active_sh_degree,
+                         flip, include_background, include_objects,
+                         train_mode)
+    compose_counts["frames"] += 1
+    compose_counts["slots"] += scene.means3d.shape[0]
+    if include_objects and meta.num_actors > 0:
+        compose_counts["actors"] += models.actors.xyz.shape[0]
+    return scene
+
+
+def _compose(models, meta, arrays, camera, active_sh_degree, flip,
+             include_background, include_objects,
+             train_mode) -> ComposedScene:
     parts = {k: [] for k in ("xyz", "color", "op", "scale", "rot", "sem",
                              "mask")}
     cam_center = camera.cam_center

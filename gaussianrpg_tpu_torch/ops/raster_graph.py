@@ -27,8 +27,9 @@ the planes are cloned once (one `cat`, of which `color`, `depth`,
 
 `graph_counts` says how often each route was taken. A replay launches no
 kernel from the host, so the kernel wrappers' counters `blend.launches`
-and `scan.launches` advance on each replay by what the capture ran, and
-keep counting the kernels the card runs (chip_smoke.py holds them to the
+and `scan.launches` (and `scan.elements`, the k * P kernel A read)
+advance on each replay by what the capture ran, and keep counting the
+kernels the card runs (chip_smoke.py holds them to the
 kernel records of a profiler trace). A replay is one `raster.graph` span
 (utils/spans.py); the `raster.*` spans of the captured path are not
 recorded on replay.
@@ -59,7 +60,8 @@ class _Held:
     buffers: dict       # input name -> the buffer each call copies into
     cam_buffers: dict   # camera field -> its buffer
     out: tuple          # the graph's own RasterOut
-    launches: tuple     # (kernel B, kernel A) launches a replay runs
+    launches: tuple     # (kernel B, kernel A) launches a replay runs, and
+                        # kernel A's elements
 
 
 _held: _Held | None = None
@@ -183,13 +185,14 @@ def _capture(k, call, fn) -> _Held:
     with torch.cuda.stream(side):
         fn(**static)              # warm-up: per-stream handles, workspaces
     cur.wait_stream(side)
-    b0, s0 = blend.launches, scan.launches
+    b0, s0, e0 = blend.launches, scan.launches, scan.elements
     with torch.cuda.graph(held.graph, stream=side,
                           capture_error_mode="thread_local"):
         held.out = fn(**static)
     # the capture ran no kernel: each replay counts them
-    held.launches = (blend.launches - b0, scan.launches - s0)
-    blend.launches, scan.launches = b0, s0
+    held.launches = (blend.launches - b0, scan.launches - s0,
+                     scan.elements - e0)
+    blend.launches, scan.launches, scan.elements = b0, s0, e0
     graph_counts["captures"] += 1
     return held
 
@@ -200,6 +203,7 @@ def _replay(held: _Held, call: dict):
         held.graph.replay()
         blend.launches += held.launches[0]
         scan.launches += held.launches[1]
+        scan.elements += held.launches[2]
         o = held.out
         planes = torch.cat([o.color, o.depth, o.alpha, o.semantic])
         out = type(o)(color=planes[0:3], depth=planes[3:4],

@@ -19,6 +19,7 @@ BLOCK = 65536        # the TPU kernel's 512x128 block: P must be a multiple
 MAX_K = 4
 
 launches = 0         # kernel launches through `fused_cummax` (CUDA only)
+elements = 0         # k * P summed over those launches: A moves 8 bytes each
 
 
 def fused_cummax_plain(xs) -> list[torch.Tensor]:
@@ -59,7 +60,7 @@ def fused_cummax(xs) -> list[torch.Tensor]:
     """Running max over each of k same-length int32 arrays, P a multiple
     of 65536. CUDA tensors go through the kernel, CPU tensors through the
     plain version."""
-    global launches
+    global launches, elements
     xs = list(xs)
     _check(xs)
     if xs[0].device.type == "cpu":
@@ -82,4 +83,5 @@ def fused_cummax(xs) -> list[torch.Tensor]:
         err = fn(ins, ptrs, k, p, scratch.data_ptr(), stream)
     cuda_build.check(err, "fused_cummax launch")
     launches += 1
+    elements += k * p
     return outs

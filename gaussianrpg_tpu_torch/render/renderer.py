@@ -22,6 +22,7 @@ from ..ops.rasterize import (primitive_fields, rasterize,
                              suggest_binning_sizes)
 from ..parallel.collectives import Axis
 from ..utils.device import resolve_device
+from ..utils.spans import span
 
 
 class RenderResult(NamedTuple):
@@ -160,23 +161,26 @@ def _render(models, meta, arrays, camera, active_sh_degree, options,
         features = (normals if features is None
                     else torch.cat([normals, features], dim=-1))
 
-    out = rasterize(
-        scene.means3d, scene.opacity, camera=camera, bg_color=bg,
-        colors=scene.colors, scales=scene.scales, rotations=scene.rotations,
-        semantics=features, scale_modifier=options.scaling_modifier,
-        means2d_offset=means2d_offset, absgrad_sink=absgrad_sink,
-        active_mask=scene.mask, capacity=options.capacity,
-        tile_x=options.tile_x, tile_y=options.tile_y,
-        sub_chunks=options.sub_chunks, tail_cap=options.tail_cap,
-        big_cap=options.big_cap, emit_k=options.emit_k,
-        model_axis=options.model_axis, device=dev)
+    with span("scene.rasterize"):
+        out = rasterize(
+            scene.means3d, scene.opacity, camera=camera, bg_color=bg,
+            colors=scene.colors, scales=scene.scales,
+            rotations=scene.rotations,
+            semantics=features, scale_modifier=options.scaling_modifier,
+            means2d_offset=means2d_offset, absgrad_sink=absgrad_sink,
+            active_mask=scene.mask, capacity=options.capacity,
+            tile_x=options.tile_x, tile_y=options.tile_y,
+            sub_chunks=options.sub_chunks, tail_cap=options.tail_cap,
+            big_cap=options.big_cap, emit_k=options.emit_k,
+            model_axis=options.model_axis, device=dev)
 
     rgb = out.color
     acc = out.alpha
     if meta.include_sky and models.sky is not None:
-        sky = render_sky(models.sky, camera,
-                         generator if train_mode else None)
-        rgb = rgb + sky * (1.0 - acc.detach())
+        with span("scene.sky"):
+            sky = render_sky(models.sky, camera,
+                             generator if train_mode else None)
+            rgb = rgb + sky * (1.0 - acc.detach())
     if meta.use_color_correction and models.color_correction is not None:
         rgb = apply_color_correction(models.color_correction, camera, rgb)
     if options.clamp_output and not train_mode:

@@ -61,6 +61,7 @@ def make_node():
             self.sync = int(round(self.tape.get("dynamic_freq", 50)
                                   / self.tape.get("image_freq", 10)))
             cam = self.cam_template
+            self.frame0 = int(cam.frame)
             self.ranger = GroundPlaneRanger(
                 width=cam.width, height=cam.height, K=cam.K.cpu().numpy(),
                 extrinsic=v2c, cam_height=CAM_HEIGHT)
@@ -95,7 +96,8 @@ def make_node():
 
             if idx % self.sync != 0:
                 return
-            cam = _camera_from_pose(self.cam_template, pose, idx, ts)
+            cam = _camera_from_pose(self.cam_template, pose,
+                                    self.frame0 + idx // self.sync, ts)
             if self.perceive_fn is not None:
                 boxes = self.perceive_fn(cam)
             else:

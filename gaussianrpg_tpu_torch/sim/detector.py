@@ -22,6 +22,7 @@ import torch
 from ..models.actor_pose import object_poses
 from ..ops.math3d import quaternion_to_matrix
 from ..utils.device import resolve_device
+from ..utils.spans import span
 
 
 @runtime_checkable
@@ -43,6 +44,12 @@ class BoxProjectionDetector:
         self._rng = np.random.default_rng(self.seed)
 
     def detect(self, image_chw, camera) -> List[np.ndarray]:
+        """The boxes of the alive actors' projected 3D boxes (span
+        `detector.boxes` under a profiler)."""
+        with span("detector.boxes"):
+            return self._detect(camera)
+
+    def _detect(self, camera) -> List[np.ndarray]:
         H, W = camera.height, camera.width
         ts = float(camera.timestamp)
         with torch.no_grad():

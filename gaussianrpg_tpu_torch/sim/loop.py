@@ -78,6 +78,7 @@ def run_closed_loop(
         width=camera_template.width, height=camera_template.height,
         cam_height=cam_height)
 
+    frame0 = int(camera_template.frame)
     ticks = 0
     min_gt = float("inf")
     log, frame_seconds = [], []
@@ -98,7 +99,8 @@ def run_closed_loop(
 
         if idx % sync_iters == 0 and ev.verdict is None:
             with span("loop.camera"):
-                cam = _camera_from_pose(camera_template, pose, idx,
+                cam = _camera_from_pose(camera_template, pose,
+                                        frame0 + idx // sync_iters,
                                         dyn.timestamp)
             with span("loop.perceive"):
                 t0 = time.perf_counter()
@@ -133,10 +135,14 @@ def run_closed_loop(
     )
 
 
-def _camera_from_pose(template: Camera, pose: dict, idx: int,
+def _camera_from_pose(template: Camera, pose: dict, frame: int,
                       timestamp: float) -> Camera:
     """The template camera rebuilt at a tape pose (same K/resolution, tape
-    R/T, tape ego pose moving the other actors)."""
+    R/T, tape ego pose moving the other actors). `frame` is the scene's
+    image frame the tick shows, the template's frame plus the image
+    periods since the tape's start (`frame0 + idx // sync_iters`): the
+    actors' Fourier colour term runs on image frames
+    (`models/scene_graph.compose`), not on the tape's dynamics ticks."""
     return make_camera(
         R=np.asarray(pose["rotation_matrix"]),
         T=np.asarray(pose["position"]),
@@ -144,7 +150,7 @@ def _camera_from_pose(template: Camera, pose: dict, idx: int,
         height=template.height,
         ego_pose=np.asarray(pose["ego_pose"], np.float32),
         extrinsic=template.extrinsic.cpu().numpy(),
-        timestamp=float(timestamp), frame=idx,
+        timestamp=float(timestamp), frame=frame,
         image_id=int(template.image_id), cam_id=template.cam_id,
         meta=template.meta, device=template.device,
     )

@@ -632,7 +632,8 @@ def test_main_frame_separate_publishes_the_render(scene, ros2_standin):
         idx = pub.tick - 1
         frame = tape["frames"][idx]
         img = pub.msg
-        rgb = render_fn(_camera_from_pose(cam0, frame, idx,
+        rgb = render_fn(_camera_from_pose(cam0, frame,
+                                          int(cam0.frame) + idx // 5,
                                           frame["timestamp"]))
         want = (np.clip(rgb, 0, 1) * 255).astype(np.uint8).transpose(1, 2, 0)
         assert (img.height, img.width, img.encoding, img.step) == (
@@ -671,7 +672,8 @@ def test_main_frame_fused_perception(scene, ros2_standin, tmp_path):
     for pub in objects:
         idx = pub.tick - 1
         frame = tape["frames"][idx]
-        boxes = perceive(_camera_from_pose(cam0, frame, idx,
+        boxes = perceive(_camera_from_pose(cam0, frame,
+                                           int(cam0.frame) + idx // 5,
                                            frame["timestamp"]))
         want = [ranger.distance(b) for b in boxes]
         want = [(r, lat) for r, lat in want if r > 0]
