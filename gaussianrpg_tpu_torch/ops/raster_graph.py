@@ -27,12 +27,15 @@ the planes are cloned once (one `cat`, of which `color`, `depth`,
 
 `graph_counts` says how often each route was taken. A replay launches no
 kernel from the host, so the kernel wrappers' counters `blend.launches`
-and `scan.launches` (and `scan.elements`, the k * P kernel A read)
-advance on each replay by what the capture ran, and keep counting the
-kernels the card runs (chip_smoke.py holds them to the
-kernel records of a profiler trace). A replay is one `raster.graph` span
-(utils/spans.py); the `raster.*` spans of the captured path are not
-recorded on replay.
+and `scan.launches` (and `scan.elements`, the k * P kernel A read), and
+binning's `scatter_counts["calls"]` and `["entries"]`, advance on each
+replay by what the capture ran, and keep counting the kernels the card
+runs (chip_smoke.py holds the first two to the kernel records of a
+profiler trace). Binning's superseded tally lives on the card and
+advances inside the replay by itself: the warm-up run makes it before
+the capture, so the graph adds to it and does not make it anew. A replay
+is one `raster.graph` span (utils/spans.py); the `raster.*` spans of the
+captured path are not recorded on replay.
 """
 from __future__ import annotations
 
@@ -60,8 +63,9 @@ class _Held:
     buffers: dict       # input name -> the buffer each call copies into
     cam_buffers: dict   # camera field -> its buffer
     out: tuple          # the graph's own RasterOut
-    launches: tuple     # (kernel B, kernel A) launches a replay runs, and
-                        # kernel A's elements
+    launches: tuple     # what a replay adds to `_counters()`: kernel B's
+                        # and A's launches, A's elements, binning's
+                        # scatter calls and entries
 
 
 _held: _Held | None = None
@@ -167,6 +171,19 @@ def _copy_in(held: _Held, call: dict) -> None:
         buf.copy_(getattr(call["camera"], n))
 
 
+def _counters() -> tuple:
+    """The host counters a replay advances, in `_Held.launches` order."""
+    sc = binning.scatter_counts
+    return (blend.launches, scan.launches, scan.elements, sc["calls"],
+            sc["entries"])
+
+
+def _set_counters(values: tuple) -> None:
+    (blend.launches, scan.launches, scan.elements,
+     binning.scatter_counts["calls"],
+     binning.scatter_counts["entries"]) = values
+
+
 def _capture(k, call, fn) -> _Held:
     dev = call["means3d"].device
     held = _Held(k, torch.cuda.CUDAGraph(),
@@ -185,14 +202,13 @@ def _capture(k, call, fn) -> _Held:
     with torch.cuda.stream(side):
         fn(**static)              # warm-up: per-stream handles, workspaces
     cur.wait_stream(side)
-    b0, s0, e0 = blend.launches, scan.launches, scan.elements
+    before = _counters()
     with torch.cuda.graph(held.graph, stream=side,
                           capture_error_mode="thread_local"):
         held.out = fn(**static)
     # the capture ran no kernel: each replay counts them
-    held.launches = (blend.launches - b0, scan.launches - s0,
-                     scan.elements - e0)
-    blend.launches, scan.launches, scan.elements = b0, s0, e0
+    held.launches = tuple(a - b for a, b in zip(_counters(), before))
+    _set_counters(before)
     graph_counts["captures"] += 1
     return held
 
@@ -201,9 +217,8 @@ def _replay(held: _Held, call: dict):
     with span("raster.graph"):
         _copy_in(held, call)
         held.graph.replay()
-        blend.launches += held.launches[0]
-        scan.launches += held.launches[1]
-        scan.elements += held.launches[2]
+        _set_counters(tuple(a + b for a, b in zip(_counters(),
+                                                  held.launches)))
         o = held.out
         planes = torch.cat([o.color, o.depth, o.alpha, o.semantic])
         out = type(o)(color=planes[0:3], depth=planes[3:4],

@@ -2,7 +2,8 @@
 versions (kernel A: fused cummax, kernel B: blend forward, kernel C: blend
 backward, and the kernels of the tools in `gaussianrpg_tpu_torch/tools`),
 plus one frame and its gradients through `rasterize` on the card against
-the CPU path, YOLOv5 perception (the graph against the CPU path, the
+the CPU path, binning's marker path at the street scene's slot layout
+against the CPU path, YOLOv5 perception (the graph against the CPU path, the
 fused step against the unfused detector), and the evaluation apps (the
 render app's PNGs, PSNR, SSIM and LPIPS on the card against the CPU
 path).
@@ -149,6 +150,39 @@ def test_binning_fill_pads_into_kernel(cuda):
     assert scan.launches == n0 + 1
     assert got.shape == (p,)
     assert torch.equal(got, torch.cummax(marks, dim=0).values)
+
+
+@pytest.mark.cuda
+def test_marker_path_street_slots_match_cpu(cuda):
+    """The street scene's slot layout on the marker path: 4,325,376 slots,
+    the 3,659,840 inactive ones trailing the depth order. The card's pair
+    lists equal the CPU's field for field, and both tally the same
+    superseded scatter entries: at least the trailing run but its last."""
+    n, active = 4_325_376, 665_536
+    W, H, capacity = 1600, 1066, 1 << 23
+    ntx, nty = binning.tile_grid_dims(W, H)
+    rng = np.random.default_rng(17)
+    x0 = rng.integers(0, ntx, n)
+    y0 = rng.integers(0, nty, n)
+    rmin = np.stack([x0, y0], -1)
+    rmax = np.stack([np.minimum(x0 + rng.integers(0, 5, n), ntx),
+                     np.minimum(y0 + rng.integers(0, 4, n), nty)], -1)
+    vis = np.arange(n) < active
+    rmin[~vis] = rmax[~vis] = 0
+    got = {}
+    for dev in ("cpu", cuda):
+        s0 = binning.scatter_superseded()
+        lists = binning.build_pair_lists(
+            torch.as_tensor(rmin, dtype=torch.int32, device=dev),
+            torch.as_tensor(rmax, dtype=torch.int32, device=dev),
+            torch.as_tensor(vis, device=dev), W, H, capacity)
+        got[str(dev)] = lists, binning.scatter_superseded() - s0
+    (a, sa), (b, sb) = got["cpu"], got["cuda"]
+    assert 0 < int(a.raw_total) < capacity and not bool(a.overflowed)
+    for f in ("pair_src", "pair_valid", "tile_nonempty", "chunk_meta",
+              "raw_total", "padded_total"):
+        assert torch.equal(getattr(a, f), getattr(b, f).cpu()), f
+    assert sa == sb >= n - active - 1
 
 
 @pytest.mark.cuda

@@ -4,12 +4,13 @@ On the CPU: the graph's key is the same across camera poses and scene
 values and differs for each field and module switch that shapes the work;
 hooks, grad, a mesh axis and CPU inputs take the eager path; the routing
 (eager, capture, replay, keys in turns, `eager()`, `release()`) with the
-capture and replay stood in for. On the card (marked `cuda`): replay
-against eager bit for bit over 20 poses on both binning paths and two
-tilings, returned tensors that the next call leaves alone, the kernel
-launch counters against eager and against a profiler trace's kernel
-records, a new key freeing the old graph, and another scene tensor of the
-same shape.
+capture and replay stood in for; a replay's advance of the host counters.
+On the card (marked `cuda`): replay against eager bit for bit over 20
+poses on both binning paths and two tilings, returned tensors that the
+next call leaves alone, the kernel launch counters against eager and
+against a profiler trace's kernel records, binning's scatter counters on
+the street scene's slot layout, a new key freeing the old graph, and
+another scene tensor of the same shape.
 
 This file imports neither JAX nor the JAX package:
 
@@ -276,6 +277,35 @@ def test_routing_release_drops_the_graph_and_the_last_key(monkeypatch):
         raster_graph.release()
 
 
+class _Graph:
+    def replay(self):
+        pass
+
+
+def test_replay_advances_the_host_counters_by_the_capture():
+    """A replay adds what its capture ran to kernel B's and A's launch
+    counters, A's elements and binning's scatter calls and entries."""
+    z = torch.zeros(1, 4, 4)
+    out = R.RasterOut(color=z.expand(3, 4, 4), depth=z, alpha=z,
+                      semantic=torch.zeros(0, 4, 4),
+                      radii=torch.zeros(2, dtype=torch.int32),
+                      means2d=torch.zeros(2, 2), overflow=torch.tensor(False),
+                      n_pairs=torch.tensor(3))
+    held = raster_graph._Held("k", _Graph(), {}, {}, out, (1, 2, 3, 4, 5))
+    before = raster_graph._counters()
+    try:
+        got = raster_graph._replay(held, {"camera": None})
+        assert raster_graph._counters() == tuple(
+            a + d for a, d in zip(before, held.launches))
+        assert (blend.launches, scan.launches, scan.elements,
+                binning.scatter_counts["calls"],
+                binning.scatter_counts["entries"]) == \
+            raster_graph._counters()
+    finally:
+        raster_graph._set_counters(before)
+    assert torch.equal(got.color, out.color) and got.radii is not out.radii
+
+
 # -- on the card -----------------------------------------------------------
 
 @pytest.fixture
@@ -430,3 +460,35 @@ def test_another_scene_tensor_changes_the_output_as_eager(cuda, fresh):
     assert not torch.equal(ref.color, before.color)
     # every input is copied in on every call: the graph stays
     assert R.graph_counts["captures"] == c0
+
+
+@pytest.mark.cuda
+def test_replay_advances_the_scatter_counters_as_eager(cuda):
+    """The street scene's slot layout (4,325,376 slots, 665,536 of them
+    active) through the graph: one replay advances binning's scatter
+    calls and entries on the host, and its superseded tally on the card,
+    by what an eager call does; the capture call warms up and replays."""
+    n, active = 4_325_376, 665_536
+    scene = _scene(cuda, n=n, seed=5)
+    scene["scales"] = scene["scales"] * 0.05
+    scene["active_mask"] = torch.arange(n, device=cuda) < active
+    bg = torch.zeros(3, device=cuda)
+    cam = _camera(cuda, pose=2)
+    sc = binning.scatter_counts
+
+    def deltas():
+        c, e, s = sc["calls"], sc["entries"], binning.scatter_superseded()
+        out = R.rasterize(camera=cam, bg_color=bg, capacity=1 << 22,
+                          device="cuda", **scene)
+        assert int(out.n_pairs) > 0 and not bool(out.overflow)
+        return (sc["calls"] - c, sc["entries"] - e,
+                binning.scatter_superseded() - s)
+
+    with torch.no_grad():
+        eager, capture, replay = deltas(), deltas(), deltas()
+    ntx, nty = binning.tile_grid_dims(W, H)
+    assert eager[:2] == (2, n + ntx * nty)
+    assert eager[2] >= n - active - 1
+    assert replay == eager
+    assert capture == tuple(2 * d for d in eager)
+    assert R.graph_counts["replays"] > 0
