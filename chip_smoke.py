@@ -82,21 +82,19 @@ Phases, one JSON line each (any failure ends the run with exit code 1):
           (the composite held to it on the first frame and seed, as in
           phase kernel, and printed for the rest);
   perception  YOLOv5 and the fused render -> letterbox -> YOLOv5s -> top-K
-          step (`loop_bench_gpu.py`'s setup: the frozen scene at 1066x1600,
-          64x32 tiles, YOLOv5s seed 0 letterboxed to 384x640): (a) the
-          graph on the card against the CPU path on the first frame,
-          within 1e-4 + 1e-4 x each column group's max, and its device ms
-          (median of single calls) beside its FP32 bound; (b) the fused
-          step against the unfused detector on the card: the same
-          detections, those within twice (a)'s score error of the
-          threshold counted; (c) the fused closed loop
-          (`loop_bench_gpu.measure`, 10 s of simulation): verdict success,
-          frame and device times, launches of kernels A and B counted
-          around the loop alone (not its warm-up frames or timing runs),
-          the fused step's kernels from a profiler trace; (d) a braking
-          event through the fused path at 1066x1600 with a red-blob
-          predictor: AEB brakes, no collision, and the control run with
-          empty perception collides;
+          step (`frozen_fused_setup`: the frozen scene at 1066x1600, 64x32
+          tiles, YOLOv5s seed 0 letterboxed to 384x640): (a) the graph on
+          the card against the CPU path on the first frame, within 1e-4 +
+          1e-4 x each column group's max; (b) the fused step against the
+          unfused detector on the card: the same detections, those within
+          twice (a)'s score error of the threshold counted; (c) the fused
+          closed loop for 2 s of simulation, untimed (its timing is
+          benchmark cell loop_frozen600k_yolo's): verdict success, frames
+          replayed through the render's CUDA graph, launches of kernels A
+          and B counted around the loop alone; (d) a braking event
+          through the fused path at 1066x1600 with a red-blob predictor:
+          AEB brakes, no collision, and the control run with empty
+          perception collides;
   train   the trainer (`apps.train.run_training`) on the synthetic scene
           at 600k background Gaussians + 2 actors, 1066x1600, 16x16: 60
           steps with one densify-and-prune event; the L1 of the trainer's
@@ -1452,6 +1450,81 @@ def phase_loop(torch):
 YOLO_RTOL = YOLO_ATOL = 1e-4   # YOLO card vs CPU, of each column group's max
 BRAKE_KW = dict(brake_distance=15.0, collision_threshold=5.0,
                 simulation_time=3.5, cam_height=1.3)
+LETTERBOX = (384, 640)          # YOLOv5s's input, letterboxed
+TOP_K = 256                     # candidates the fused step keeps
+EGO_SPEED = 8.0                 # m/s along the frozen scene's trajectory
+FROZEN_TILE = (64, 32)
+FUSED_LOOP_S = 2.0              # simulated seconds of perception (c)
+
+
+def frozen_fused_setup(torch):
+    """The frozen scene at 1066x1600, the ego's cameras and tape over
+    FUSED_LOOP_S s at 10 Hz (EGO_SPEED along +z), the pair capacity probed
+    over that trajectory, and the fused render -> letterbox -> YOLOv5s ->
+    top-K step (random weights, `init_params(spec, seed=0)`). Returns a
+    dict."""
+    import numpy as np
+
+    from gaussianrpg_tpu_torch.ops.rasterize import (primitive_fields,
+                                                     rasterize,
+                                                     suggest_binning_sizes)
+    from gaussianrpg_tpu_torch.render.camera import make_camera
+    from gaussianrpg_tpu_torch.sim.detector import VEHICLE_CLASSES
+    from gaussianrpg_tpu_torch.sim.pipeline import make_fused_step
+    from gaussianrpg_tpu_torch.sim.tape import build_tape_from_cameras
+    from gaussianrpg_tpu_torch.sim.yolo import init_params, spec_yolov5
+    from gaussianrpg_tpu_torch.utils.synthetic import build_frozen_scene
+
+    dev = torch.device("cuda")
+    tx, ty = FROZEN_TILE
+    _, args, H, W = build_frozen_scene(dev)
+    ts = np.arange(int(round(FUSED_LOOP_S * 10)) + 1) / 10.0
+    fovx = math.radians(50.0)
+    fovy = 2 * math.atan(math.tan(fovx / 2) * H / W)
+    cams = []
+    for i, t in enumerate(ts):
+        c2w = np.eye(4)
+        c2w[2, 3] = EGO_SPEED * t
+        w2c = np.linalg.inv(c2w)
+        cams.append(make_camera(
+            R=w2c[:3, :3].T, T=w2c[:3, 3], K=None, width=W, height=H,
+            fovx=fovx, fovy=fovy, ego_pose=c2w.astype(np.float32),
+            timestamp=float(t), frame=i, image_id=i, device=dev))
+    tape = {"frames": build_tape_from_cameras(cams, upsample_rate=5),
+            "image_freq": 10, "dynamic_freq": 50}
+
+    # a tight probe across the trajectory: every capacity-linear stage
+    # (binning sort, tails, pair gather, blend grid) pays the slack
+    means, opac, colors, scales, quats = args
+    sizes = []
+    with torch.no_grad():
+        for c in cams[::8] + [cams[-1]]:
+            fs = primitive_fields(means, opac, camera=c, colors=colors,
+                                  scales=scales, rotations=quats,
+                                  tile_x=tx, tile_y=ty)
+            sizes.append(suggest_binning_sizes(fs, width=W, height=H,
+                                               slack=1.05, quantum=8192))
+    capacity = max(s.capacity for s in sizes)
+    tail_cap = max(s.tail_cap for s in sizes)
+    big_cap = max(s.big_cap for s in sizes)
+    emit_k = min(s.emit_k for s in sizes)
+    bg = torch.zeros(3, device=dev)
+
+    @torch.no_grad()
+    def render_rgb(camera, m, op, c, s, r):
+        return rasterize(m, op, colors=c, scales=s, rotations=r,
+                         camera=camera, bg_color=bg, capacity=capacity,
+                         tile_x=tx, tile_y=ty, tail_cap=tail_cap,
+                         big_cap=big_cap, emit_k=emit_k, device=dev).color
+
+    spec = spec_yolov5()
+    params = init_params(spec, seed=0, device=dev)
+    step, gain, pad = make_fused_step(render_rgb, spec, params, (H, W),
+                                      size=LETTERBOX, k=TOP_K,
+                                      classes=VEHICLE_CLASSES)
+    return dict(cam=cams[0], tape=tape, args=args, H=H, W=W,
+                render_rgb=render_rgb, step=step, gain=gain, pad=pad,
+                spec=spec, params=params)
 
 
 def pred_errors(got, ref):
@@ -1484,24 +1557,23 @@ def compare_detections(a, b, thr, conf_tol, box_tol):
 
 def phase_perception(torch):
     """YOLOv5 perception and the fused render -> letterbox -> YOLOv5s ->
-    top-K step on the card (`loop_bench_gpu.py`'s setup: the frozen scene
-    at 1066x1600, 64x32 tiles, YOLOv5s seed 0 at 384x640):
+    top-K step on the card (`frozen_fused_setup`: the frozen scene at
+    1066x1600, 64x32 tiles, YOLOv5s seed 0 at 384x640):
       (a) YOLOv5s on the card against the port's CPU path on the first
           frame letterboxed to [1, 384, 640, 3]: the decoded [15120, 85]
           predictions within YOLO_RTOL / YOLO_ATOL of each column group's
-          max; the forward's device ms (median of single calls) beside
-          its FP32 bound;
+          max;
       (b) the fused step against the unfused detector (host letterbox,
           NMS over the full prediction) on that frame, both on the card, at
           the threshold halfway between the 64th and 65th candidates'
           conf: the same detections, apart from those whose conf lies
           within twice (a)'s score error of it (counted, printed);
-      (c) `loop_bench_gpu.measure`: the closed loop for 10 s of
-          simulation, verdict success, its frame and device times, and
-          launches of kernels A and B in the loop alone (counted around
-          `run_closed_loop`: not its warm-up frames or timing runs); the
-          kernels of the fused step by device time (a profiler trace,
-          `_timing.kernel_trace`);
+      (c) the fused closed loop (`sim/loop.run_closed_loop`, FUSED_LOOP_S
+          s of simulation toward a virtual vehicle parked 150 m ahead),
+          untimed: verdict success, its frames rendered through the
+          render's CUDA graph, and launches of kernels A and B counted
+          around the loop alone (its timing is benchmark cell
+          loop_frozen600k_yolo's);
       (d) a braking event through the fused path (tests/
           test_torch_perception.py's, at 1066x1600 letterboxed to
           384x640): AEB brakes, no collision; the control run with empty
@@ -1509,7 +1581,7 @@ def phase_perception(torch):
     Returns the launches of (c)'s and (d)'s loops."""
     import numpy as np
 
-    import loop_bench_gpu as lb
+    from gaussianrpg_tpu_torch.ops.rasterize import graph_counts
     from gaussianrpg_tpu_torch.sim import yolo
     from gaussianrpg_tpu_torch.sim.detector import (VEHICLE_CLASSES,
                                                     normalized_boxes)
@@ -1517,31 +1589,25 @@ def phase_perception(torch):
     from gaussianrpg_tpu_torch.sim.pipeline import (finish_detections,
                                                     letterbox_device,
                                                     make_fused_step)
-    from gaussianrpg_tpu_torch.tools._timing import (cycling,
-                                                     device_ms_each,
-                                                     kernel_trace)
     from gaussianrpg_tpu_torch.utils.synthetic import (red_blob_predict,
                                                        red_lead_setup)
 
     t0 = time.time()
-    s = lb.setup(10.0, seed=0, device="cuda")
-    cam, args, spec, params = s["cams"][0], s["args"], s["spec"], s["params"]
+    s = frozen_fused_setup(torch)
+    cam, args, spec, params = s["cam"], s["args"], s["spec"], s["params"]
     frame = s["render_rgb"](cam, *args)
-    boxed = letterbox_device(frame, lb.SIZE)[0][None].contiguous()
+    boxed = letterbox_device(frame, LETTERBOX)[0][None].contiguous()
     pred = yolo.forward(spec, params, boxed)[0]
     cpu_model = yolo.init_params(spec, seed=0, device="cpu")
     ref = yolo.forward(spec, cpu_model, boxed.cpu())[0]
     errs = pred_errors(pred.cpu(), ref)
     ok = all(e <= YOLO_ATOL + YOLO_RTOL * m for e, m in errs.values())
-    ms = device_ms_each(lambda: yolo.forward(spec, params, boxed))
-    flops = lb.yolo_flops(spec, *lb.SIZE)
     emit(dict(phase="perception", check="yolo card vs cpu",
               input=list(boxed.shape), pred=list(pred.shape),
               max_abs_err={k: e for k, (e, _) in errs.items()},
               group_max={k: m for k, (_, m) in errs.items()},
               limit=f"atol {YOLO_ATOL} + rtol {YOLO_RTOL} x group max",
-              yolo_ms=ms, gflop=flops / 1e9,
-              bound_ms=bound(0, flops)[0], ok=ok))
+              ok=ok))
     check(ok, "perception", "YOLOv5s on the card disagrees with the CPU")
 
     cand = s["step"](cam, *args)
@@ -1552,37 +1618,38 @@ def phase_perception(torch):
     fused = finish_detections(cand, s["gain"], s["pad"], (s["H"], s["W"]),
                               conf_thres=thr)
     unfused = yolo.YoloDetector(
-        spec=spec, params=params, size=lb.SIZE, conf_thres=thr,
+        spec=spec, params=params, size=LETTERBOX, conf_thres=thr,
         classes=VEHICLE_CLASSES, device="cuda")(
             frame.cpu().numpy().transpose(1, 2, 0))
     cmp = compare_detections(fused, unfused, thr, conf_tol, box_tol)
     ok = cmp["same"] and cmp["n"][0] > 0
     emit(dict(phase="perception", check="fused vs unfused", conf_thres=thr,
-              k=lb.K, conf_tol=conf_tol, box_tol_px=box_tol, **cmp, ok=ok))
+              k=TOP_K, conf_tol=conf_tol, box_tol_px=box_tol, **cmp, ok=ok))
     check(ok, "perception", "fused and unfused detections disagree")
     del pred, ref, cpu_model, boxed
 
-    rec, res = lb.measure(s, 10.0)
-    launches_c = rec["launches"]      # counted around the loop alone
-    trace = kernel_trace(cycling(s["step"].device_step,
-                                 [(c, *args) for c in s["cams"][1:6]]))
+    def perceive_yolo(c):
+        det = finish_detections(s["step"](c, *args), s["gain"], s["pad"],
+                                (s["H"], s["W"]), conf_thres=0.4)
+        return normalized_boxes(det, s["H"], s["W"])
+
+    gt = {i: (150.0, 0.0, 0.0) for i in range(len(s["tape"]["frames"]))}
+    v2c = np.array([[0., -1., 0., 0.], [0., 0., -1., 0.],
+                    [1., 0., 0., 0.], [0., 0., 0., 1.]])
+    graph0 = dict(graph_counts)
+    reset_counts()
+    res = run_closed_loop(s["tape"], None, None, cam, gt,
+                          brake_distance=15.0, collision_threshold=5.0,
+                          simulation_time=FUSED_LOOP_S, ranger_extrinsic=v2c,
+                          perceive_fn=perceive_yolo)
+    launches_c = launch_counts()
+    graph = {k: n - graph0[k] for k, n in graph_counts.items()}
     ok = (res.verdict == "success" and res.frames_rendered > 5
+          and graph["replays"] > 0
           and launches_c["blend_fwd"] > 0 and launches_c["cummax"] > 0)
     emit(dict(phase="perception", check="fused closed loop",
               verdict=res.verdict, frames=res.frames_rendered,
-              median_frame_ms=rec["sequential_frame_ms"],
-              frame_ms_p10_p90_max=rec["frame_ms_p10_p90_max"],
-              render_ms=rec["render_ms"], yolo_ms=rec["yolo_ms"],
-              fused_device_ms=rec["fused_device_ms"],
-              host_nms_aeb_ms=rec["host_nms_aeb_ms"],
-              loop_hz=rec["loop_hz"], launches=launches_c,
-              fused_step_kernels=dict(
-                  launches=sum(k["launches_per_call"] for k in trace),
-                  ms=sum(k["ms_per_call"] for k in trace),
-                  top=[dict(name=k["name"][:90],
-                            launches=k["launches_per_call"],
-                            ms=k["ms_per_call"]) for k in trace[:12]]),
-              ok=ok))
+              render_graph=graph, launches=launches_c, ok=ok))
     check(ok, "perception", "fused closed loop failed")
     del s
     torch.cuda.empty_cache()
@@ -1591,7 +1658,7 @@ def phase_perception(torch):
     tape, render_rgb, cam0, gt, v2c = red_lead_setup(
         W, H, device="cuda")
     step, gain, pad = make_fused_step(
-        render_rgb, None, None, (H, W), size=lb.SIZE, k=8,
+        render_rgb, None, None, (H, W), size=LETTERBOX, k=8,
         classes=VEHICLE_CLASSES, predict_fn=red_blob_predict)
 
     def perceive(c):
@@ -1611,7 +1678,7 @@ def phase_perception(torch):
           and res.log[-1]["velocity"] < 0.5
           and control.verdict == "collision")
     emit(dict(phase="perception", check="fused braking event",
-              size=f"{W}x{H}", letterbox=list(lb.SIZE), verdict=res.verdict,
+              size=f"{W}x{H}", letterbox=list(LETTERBOX), verdict=res.verdict,
               frames=res.frames_rendered, aeb_braked=braked,
               min_gt_distance=res.min_gt_distance,
               final_velocity=res.log[-1]["velocity"],

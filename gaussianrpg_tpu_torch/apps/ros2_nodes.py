@@ -104,15 +104,14 @@ def run_simulator_node(tape, render_fn, detector, camera_template,
     from rclpy.node import Node
     from scipy.spatial.transform import Rotation
 
-    from ..sim.loop import _camera_from_pose
+    from ..sim.loop import ImageTicks
     from ..sim.nodes import CarDynamics, GroundPlaneRanger
 
     class SimulatorNode(Node):
         def __init__(self):
             super().__init__("gaussian_rpg")
             self.dyn = CarDynamics(tape=tape)
-            self.sync = int(round(tape.get("dynamic_freq", 50)
-                                  / tape.get("image_freq", 10)))
+            self.images = ImageTicks(tape, camera_template)
             self.pub_pose = self.create_publisher(
                 PoseWithCovarianceStamped, "cam_pose", 10)
             self.pub_obj = self.create_publisher(PoseArray, "objects", 10)
@@ -125,7 +124,6 @@ def run_simulator_node(tape, render_fn, detector, camera_template,
                     camera_template.extrinsic.cpu().numpy()),
                 width=camera_template.width,
                 height=camera_template.height)
-            self.frame0 = int(camera_template.frame)
             self.timer = self.create_timer(self.dyn.dt, self.tick)
 
         def on_cmd(self, msg):
@@ -146,10 +144,8 @@ def run_simulator_node(tape, render_fn, detector, camera_template,
             msg.pose.covariance[0] = float(idx)
             self.pub_pose.publish(msg)
 
-            if idx % self.sync == 0:
-                cam = _camera_from_pose(camera_template, pose,
-                                        self.frame0 + idx // self.sync,
-                                        self.dyn.timestamp)
+            cam = self.images.camera(idx, pose, self.dyn.timestamp)
+            if cam is not None:
                 img = np.asarray(render_fn(cam))
                 self.pub_obj.publish(pose_array(
                     detector.detect(img, cam), self.ranger))

@@ -20,9 +20,9 @@ in which every dropped entry, and every entry that its right-hand
 neighbour supersedes (same index, value no larger), writes a private slot
 past the end: the runs of equal offsets that the marker scatters meet (the
 inactive slots' trailing run on the marker path) then cost one atomic per
-distinct offset, not one atomic each on a shared address (`scatter_counts`
-tallies them). Counts are taken in float32 or int, never in bfloat16;
-sorts keep `stable=True` where the JAX package asks for it.
+distinct offset, not one atomic each on a shared address. Counts are taken
+in float32 or int, never in bfloat16; sorts keep `stable=True` where the
+JAX package asks for it.
 """
 from __future__ import annotations
 
@@ -94,31 +94,6 @@ def _cumsum(x: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(x, dim=0, dtype=I32)
 
 
-# `_scatter_max`'s calls and entries, counted on the host from shapes, and
-# its superseded entries: one int64 tally per device, on that device,
-# advanced by the card inside a frame (and inside a graph replay) and read
-# by `scatter_superseded()` only on request
-scatter_counts = {"calls": 0, "entries": 0, "superseded": {}}
-
-
-def _superseded_tally(dev: torch.device) -> torch.Tensor:
-    tally = scatter_counts["superseded"].get(dev)
-    if tally is None:
-        # made inside a capture it would be zeroed on every replay
-        assert not (dev.type == "cuda"
-                    and torch.cuda.is_current_stream_capturing()), \
-            "allocate the scatter tally before capturing a graph"
-        tally = torch.zeros((), dtype=torch.int64, device=dev)
-        scatter_counts["superseded"][dev] = tally
-    return tally
-
-
-def scatter_superseded() -> int:
-    """The superseded entries `_scatter_max` has met, on every device (a
-    host read: never inside a frame)."""
-    return sum(int(t) for t in scatter_counts["superseded"].values())
-
-
 def _scatter_max(size: int, idx: torch.Tensor, vals: torch.Tensor):
     """zeros(size).at[idx].max(vals, mode="drop"), for any idx and vals.
 
@@ -139,9 +114,6 @@ def _scatter_max(size: int, idx: torch.Tensor, vals: torch.Tensor):
                        torch.arange(size, size + n, device=dev))
     out = torch.zeros(size + n, dtype=I32, device=dev)
     out.scatter_reduce_(0, slot, vals, "amax")
-    scatter_counts["calls"] += 1
-    scatter_counts["entries"] += n
-    _superseded_tally(dev).add_(sup.sum())
     return out[:size]
 
 

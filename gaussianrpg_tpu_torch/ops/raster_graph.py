@@ -2,40 +2,23 @@
 signature and then replayed, so the host issues one graph launch a frame
 in place of the path's ~600 kernel launches.
 
-`rasterize.rasterize` hands every call to `run`. A call engages the graph
-(`engages`) on the card, with no training hooks, no input that needs grad
-while grad mode is on, no mesh axis and the stream not already capturing;
-every other call, and every call inside `eager()`, runs the eager path.
-`key` holds everything of an engaging call that shapes the work. A key
-met for the first time runs eagerly. The same key on the next call warms
-up on a side stream, then captures into a `torch.cuda.CUDAGraph`; later
-calls with that key replay it. A key that does not repeat on consecutive
-calls (two cameras in turns) runs eagerly, as before.
+`rasterize.rasterize` hands every call to `run`. A call that `engages`
+the graph is keyed by everything of it that shapes the work (`key`). A
+key met for the first time runs eagerly; the same key on the next call
+warms up on a side stream, then captures; later calls with that key
+replay. Each replay copies every tensor argument of the call, and the
+camera's matrices, into the graph's buffers, and returns clones: what a
+replay reads and returns is the caller's.
 
 One graph is held at a time: a key that is captured frees the graph
-before it. What it holds, for the life of the process, is the graph's
-private memory pool (one render's working set) and its input buffers (a
-copy of the scene's tensors); a caller that stops rendering, or goes on
-to another scene, frees both with `release()`.
+before it. A graph pins its private memory pool (one render's working
+set) and a copy of the scene's tensors for the life of the process, so
+holding more than one would hold that many scenes; `release()` frees it.
 
-Each replay copies every tensor input (the scene's and the camera's
-three matrices) into the graph's buffers, so a replay reads what the
-call passed, whoever owns it, and returns tensors that are the caller's:
-the planes are cloned once (one `cat`, of which `color`, `depth`,
-`alpha` and `semantic` are views), and `radii`, `means2d`, `overflow`,
-`n_pairs` are cloned.
-
-`graph_counts` says how often each route was taken. A replay launches no
-kernel from the host, so the kernel wrappers' counters `blend.launches`
-and `scan.launches` (and `scan.elements`, the k * P kernel A read), and
-binning's `scatter_counts["calls"]` and `["entries"]`, advance on each
-replay by what the capture ran, and keep counting the kernels the card
-runs (chip_smoke.py holds the first two to the kernel records of a
-profiler trace). Binning's superseded tally lives on the card and
-advances inside the replay by itself: the warm-up run makes it before
-the capture, so the graph adds to it and does not make it anew. A replay
-is one `raster.graph` span (utils/spans.py); the `raster.*` spans of the
-captured path are not recorded on replay.
+A replay launches no kernel from the host, so it advances the host
+counters in `COUNTERS` by what its capture ran: they keep counting the
+kernels the card runs (chip_smoke.py holds them to a profiler trace's
+kernel records). A replay is one `raster.graph` span (utils/spans.py).
 """
 from __future__ import annotations
 
@@ -47,11 +30,18 @@ import torch
 from ..utils.spans import span
 from . import binning, blend, scan
 
-# rasterize's tensor inputs that the graph may read (the hooks never
-# reach it)
-TENSORS = ("means3d", "opacities", "bg_color", "colors", "shs", "semantics",
-           "scales", "rotations", "cov3d_precomp", "active_mask")
+# the camera's tensors the path reads (copied on each replay) and the
+# fields that shape its work (keyed); the path reads none of the rest (K,
+# ego_pose, extrinsic, timestamp, frame, ids, meta)
 CAMERA = ("viewmatrix", "projmatrix", "cam_center")
+CAMERA_KEY = ("width", "height", "tan_fovx", "tan_fovy", "lim_tan_fovx",
+              "lim_tan_fovy", "full_width", "full_height")
+# module switches that shape eval work (`rasterize.DERIVE_GM` shapes
+# train calls only, which never engage)
+SWITCHES = ((binning, "EMIT_PAIRS"), (binning, "EMIT_K"),
+            (binning, "SUB_CHUNKS"))
+# host counters of the kernels the path launches
+COUNTERS = ((blend, "launches"), (scan, "launches"), (scan, "elements"))
 
 graph_counts = {"captures": 0, "replays": 0, "eager": 0}
 
@@ -60,12 +50,10 @@ graph_counts = {"captures": 0, "replays": 0, "eager": 0}
 class _Held:
     key: tuple
     graph: torch.cuda.CUDAGraph
-    buffers: dict       # input name -> the buffer each call copies into
+    buffers: dict       # tensor argument -> the buffer each call copies into
     cam_buffers: dict   # camera field -> its buffer
     out: tuple          # the graph's own RasterOut
-    launches: tuple     # what a replay adds to `_counters()`: kernel B's
-                        # and A's launches, A's elements, binning's
-                        # scatter calls and entries
+    launches: tuple     # what a replay adds to COUNTERS
 
 
 _held: _Held | None = None
@@ -94,6 +82,10 @@ def eager():
         _eager_only -= 1
 
 
+def _tensors(call: dict) -> dict:
+    return {n: v for n, v in call.items() if isinstance(v, torch.Tensor)}
+
+
 def engages(call: dict, dev: torch.device) -> bool:
     """Whether a call of `rasterize` (its keyword arguments, `device`
     left out) may run through the graph: on the card, no training hooks,
@@ -103,40 +95,27 @@ def engages(call: dict, dev: torch.device) -> bool:
             or call["means2d_offset"] is not None
             or call["absgrad_sink"] is not None):
         return False
-    tensors = [call[n] for n in TENSORS] + [
+    tensors = list(_tensors(call).values()) + [
         getattr(call["camera"], n) for n in CAMERA]
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         return False
     return not torch.cuda.is_current_stream_capturing()
 
 
 def key(call: dict) -> tuple:
-    """What of a `rasterize` call shapes the work the graph replays: N,
-    each tensor input's shape and dtype (None when absent), the static
-    options, the camera's size and field of view, the module switches the
-    path reads, the device, the current stream and inference mode. The
-    camera's matrices and the scene's values are not in it."""
-    from . import rasterize    # which imports this module
-
+    """What of a `rasterize` call shapes the work the graph replays: each
+    argument but the camera, a tensor as its shape and dtype and anything
+    else (None too) as its value; the camera's `CAMERA_KEY` fields; the
+    `SWITCHES`; the device, the current stream and inference mode."""
     cam = call["camera"]
-    t = call["means3d"]
+    dev = cam.device
     return (
-        t.shape[0],
-        tuple(None if call[n] is None else (tuple(call[n].shape),
-                                            call[n].dtype)
-              for n in TENSORS),
-        tuple(call[n] for n in ("sh_degree", "scale_modifier", "capacity",
-                                "tile_x", "tile_y", "tight_rect",
-                                "sub_chunks", "tail_cap", "big_cap",
-                                "emit_k")),
-        (cam.width, cam.height, cam.tan_fovx, cam.tan_fovy,
-         cam.lim_tan_fovx, cam.lim_tan_fovy, cam.full_width,
-         cam.full_height),
-        (binning.EMIT_PAIRS, binning.EMIT_K, binning.SUB_CHUNKS,
-         rasterize.DERIVE_GM),
-        t.device, torch.cuda.current_stream(t.device).cuda_stream
-        if t.device.type == "cuda" else None,
+        tuple((n, (tuple(v.shape), v.dtype) if isinstance(v, torch.Tensor)
+               else v) for n, v in call.items() if n != "camera"),
+        tuple(getattr(cam, n) for n in CAMERA_KEY),
+        tuple(getattr(m, a) for m, a in SWITCHES),
+        dev, torch.cuda.current_stream(dev).cuda_stream
+        if dev.type == "cuda" else None,
         torch.is_inference_mode_enabled(),
     )
 
@@ -164,6 +143,14 @@ def run(call: dict, dev: torch.device, fn):
     return _replay(_held, call)
 
 
+def _buffers(call: dict) -> tuple[dict, dict]:
+    """A buffer for each tensor argument of the call and for each
+    `CAMERA` field."""
+    return ({n: torch.empty_like(v) for n, v in _tensors(call).items()},
+            {n: torch.empty_like(getattr(call["camera"], n))
+             for n in CAMERA})
+
+
 def _copy_in(held: _Held, call: dict) -> None:
     for n, buf in held.buffers.items():
         buf.copy_(call[n])
@@ -171,26 +158,18 @@ def _copy_in(held: _Held, call: dict) -> None:
         buf.copy_(getattr(call["camera"], n))
 
 
-def _counters() -> tuple:
-    """The host counters a replay advances, in `_Held.launches` order."""
-    sc = binning.scatter_counts
-    return (blend.launches, scan.launches, scan.elements, sc["calls"],
-            sc["entries"])
+def _snapshot() -> tuple:
+    return tuple(getattr(m, a) for m, a in COUNTERS)
 
 
-def _set_counters(values: tuple) -> None:
-    (blend.launches, scan.launches, scan.elements,
-     binning.scatter_counts["calls"],
-     binning.scatter_counts["entries"]) = values
+def _advance(by: tuple) -> None:
+    for (m, a), d in zip(COUNTERS, by):
+        setattr(m, a, getattr(m, a) + d)
 
 
 def _capture(k, call, fn) -> _Held:
-    dev = call["means3d"].device
-    held = _Held(k, torch.cuda.CUDAGraph(),
-                 {n: torch.empty_like(call[n]) for n in TENSORS
-                  if call[n] is not None},
-                 {n: torch.empty_like(getattr(call["camera"], n))
-                  for n in CAMERA}, None, None)
+    dev = call["camera"].device
+    held = _Held(k, torch.cuda.CUDAGraph(), *_buffers(call), None, None)
     _copy_in(held, call)
     static = dict(call, **held.buffers, camera=dataclasses.replace(
         call["camera"], **held.cam_buffers))
@@ -202,13 +181,13 @@ def _capture(k, call, fn) -> _Held:
     with torch.cuda.stream(side):
         fn(**static)              # warm-up: per-stream handles, workspaces
     cur.wait_stream(side)
-    before = _counters()
+    before = _snapshot()
     with torch.cuda.graph(held.graph, stream=side,
                           capture_error_mode="thread_local"):
         held.out = fn(**static)
     # the capture ran no kernel: each replay counts them
-    held.launches = tuple(a - b for a, b in zip(_counters(), before))
-    _set_counters(before)
+    held.launches = tuple(a - b for a, b in zip(_snapshot(), before))
+    _advance(tuple(-d for d in held.launches))
     graph_counts["captures"] += 1
     return held
 
@@ -217,8 +196,7 @@ def _replay(held: _Held, call: dict):
     with span("raster.graph"):
         _copy_in(held, call)
         held.graph.replay()
-        _set_counters(tuple(a + b for a, b in zip(_counters(),
-                                                  held.launches)))
+        _advance(held.launches)
         o = held.out
         planes = torch.cat([o.color, o.depth, o.alpha, o.semantic])
         out = type(o)(color=planes[0:3], depth=planes[3:4],

@@ -44,7 +44,7 @@ def make_node():
 
     from ..apps.simulate import config_setup
     from ..config.config import load_config
-    from ..sim.loop import _camera_from_pose
+    from ..sim.loop import ImageTicks
     from ..sim.nodes import CarDynamics, GroundPlaneRanger
 
     class MainFrame(Node):
@@ -58,10 +58,8 @@ def make_node():
              _, v2c, self.perceive_fn) = config_setup(cfg, device=device)
             self.separate = bool(cfg.sim.get("separate_perception", False))
             self.dyn = CarDynamics(tape=self.tape)
-            self.sync = int(round(self.tape.get("dynamic_freq", 50)
-                                  / self.tape.get("image_freq", 10)))
+            self.images = ImageTicks(self.tape, self.cam_template)
             cam = self.cam_template
-            self.frame0 = int(cam.frame)
             self.ranger = GroundPlaneRanger(
                 width=cam.width, height=cam.height, K=cam.K.cpu().numpy(),
                 extrinsic=v2c, cam_height=CAM_HEIGHT)
@@ -94,10 +92,9 @@ def make_node():
             msg.pose.covariance[0] = float(idx)
             self.pub_pose.publish(msg)
 
-            if idx % self.sync != 0:
+            cam = self.images.camera(idx, pose, ts)
+            if cam is None:
                 return
-            cam = _camera_from_pose(self.cam_template, pose,
-                                    self.frame0 + idx // self.sync, ts)
             if self.perceive_fn is not None:
                 boxes = self.perceive_fn(cam)
             else:

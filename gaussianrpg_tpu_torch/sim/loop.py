@@ -63,11 +63,10 @@ def run_closed_loop(
     render_fn and the detector), `loop.range` and `loop.aeb`
     (utils/spans.py)."""
     dyn = CarDynamics(tape=tape)
-    sync_iters = int(round(tape.get("dynamic_freq", 50)
-                           / tape.get("image_freq", 10)))
+    images = ImageTicks(tape, camera_template)
     aeb = AebController(brake_distance=brake_distance)
     gt = GroundTruth(tape=tape, tracklets=gt_tracklets,
-                     start_frame=start_frame, sync_iter_times=sync_iters)
+                     start_frame=start_frame, sync_iter_times=images.sync)
     ev = Evaluation(simulation_time=simulation_time,
                     collision_threshold=collision_threshold,
                     start_time=tape["frames"][0]["timestamp"])
@@ -78,7 +77,6 @@ def run_closed_loop(
         width=camera_template.width, height=camera_template.height,
         cam_height=cam_height)
 
-    frame0 = int(camera_template.frame)
     ticks = 0
     min_gt = float("inf")
     log, frame_seconds = [], []
@@ -97,11 +95,9 @@ def run_closed_loop(
                 min_gt = min(min_gt, d)
                 ev.on_distance(d, dyn.timestamp)
 
-        if idx % sync_iters == 0 and ev.verdict is None:
-            with span("loop.camera"):
-                cam = _camera_from_pose(camera_template, pose,
-                                        frame0 + idx // sync_iters,
-                                        dyn.timestamp)
+        cam = None if ev.verdict is not None else images.camera(
+            idx, pose, dyn.timestamp)
+        if cam is not None:
             with span("loop.perceive"):
                 t0 = time.perf_counter()
                 if perceive_fn is not None:
@@ -133,6 +129,31 @@ def run_closed_loop(
         log=log,
         frame_seconds=frame_seconds,
     )
+
+
+class ImageTicks:
+    """The imaging schedule of a tape: every `sync`-th dynamics tick
+    (dynamic_freq / image_freq, 50 / 10 Hz) shows an image, of the
+    scene's image frame `frame0 + idx // sync`, `frame0` being the
+    template's (read once: it is a tensor on the template's device)."""
+
+    def __init__(self, tape: dict, template: Camera):
+        self.sync = int(round(tape.get("dynamic_freq", 50)
+                              / tape.get("image_freq", 10)))
+        self.template = template
+        self.frame0 = int(template.frame)
+
+    def camera(self, idx: int, pose: dict,
+               timestamp: float) -> Camera | None:
+        """The camera to render at dynamics tick `idx` (its tape pose and
+        timestamp), or None on a tick without an image. Under a profiler
+        it records the span `loop.camera`."""
+        if idx % self.sync:
+            return None
+        with span("loop.camera"):
+            return _camera_from_pose(self.template, pose,
+                                     self.frame0 + idx // self.sync,
+                                     timestamp)
 
 
 def _camera_from_pose(template: Camera, pose: dict, frame: int,

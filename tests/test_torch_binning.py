@@ -5,8 +5,7 @@ tests/test_pallas.py does), including rank mode, the compacted tail,
 sub-chunk alignment, the fused-fill capacity and overflow, a street-like
 table whose inactive slots trail the depth order, and a long padding run
 in the compacted tail. The marker scatter's helper is held to the plain
-atomic formula on sorted and unsorted input, and its counters to the
-superseded entries worked out from each input."""
+atomic formula on sorted and unsorted input."""
 import numpy as np
 import pytest
 import torch
@@ -137,12 +136,6 @@ def _scatter_max_drop(size, idx, vals):
     return out.scatter_reduce_(0, idx, vals, "amax")[:size]
 
 
-def _superseded_np(idx, vals):
-    """Entries whose right-hand neighbour has the same index and a value no
-    smaller."""
-    return int(np.sum((idx[:-1] == idx[1:]) & (vals[:-1] <= vals[1:])))
-
-
 def _scatter_case(name, rng):
     n = 4000
     up = np.arange(1, n + 1)
@@ -180,39 +173,15 @@ def _scatter_case(name, rng):
 def test_scatter_max_equals_the_atomic_formula(name):
     """`_scatter_max` routes superseded and out-of-range entries to private
     slots; the result equals the plain formula element for element, on
-    sorted and unsorted input, and the counters add the call's entries
-    and the superseded ones worked out from the input."""
+    sorted and unsorted input."""
     size, idx, vals = _scatter_case(name, np.random.default_rng(len(name)))
     idx, vals = idx.astype(np.int32), vals.astype(np.int32)
-    c0 = dict(tb.scatter_counts)
-    s0 = tb.scatter_superseded()
     got = tb._scatter_max(size, tt(idx), tt(vals))
     ref = _scatter_max_drop(size, tt(idx), tt(vals))
     assert got.shape == (size,) and got.dtype == torch.int32
     assert torch.equal(got, ref)
-    sup = _superseded_np(idx, vals)
-    assert tb.scatter_superseded() - s0 == sup
-    assert tb.scatter_counts["calls"] == c0["calls"] + 1
-    assert tb.scatter_counts["entries"] == c0["entries"] + len(idx)
-    if name == "sorted_runs":
-        assert sup == len(idx) - len(np.unique(idx))
-        assert sup >= 3 * len(idx) // 4 - 1
-
-
-def _tile_counts(rmin, rmax, vis, ntx, nty):
-    """Pairs per tile, rect by rect."""
-    counts = np.zeros((nty, ntx), np.int64)
-    for (x0, y0), (x1, y1), v in zip(rmin, rmax, vis):
-        if v:
-            counts[y0:max(y1, y0), x0:max(x1, x0)] += 1
-    return counts.reshape(-1)
-
-
-def _spare_superseded(counts, align):
-    """The spare-slot scatter's superseded entries: a tile whose padding
-    is 0 repeats its successor's offset."""
-    pad = -counts % align
-    return int(np.sum(pad[:-1] == 0))
+    if name == "sorted_runs":         # the trailing run is there
+        assert len(idx) - len(np.unique(idx)) >= 3 * len(idx) // 4 - 1
 
 
 def _street_rects(seed, n, ntx, nty, active):
@@ -228,46 +197,32 @@ def test_marker_path_street_layout(emit_flag):
     """The marker path on a street-like table: 80% of the slots inactive
     at the end of the depth order, `raw_total` below the capacity, so the
     marker scatter's trailing run is 1600 entries long. Equal to the JAX
-    package; the superseded count is the zero-area rects but the last
-    plus the spare scatter's repeats."""
+    package."""
     emit_flag(False)
     W, H, n, active = 96, 64, 2000, 400
     ntx, nty = jb.tile_grid_dims(W, H)
     rmin, rmax, vis = _street_rects(11, n, ntx, nty, active)
     a = jb.build_pair_lists(jnp.asarray(rmin), jnp.asarray(rmax),
                             jnp.asarray(vis), W, H, capacity=8192)
-    s0 = tb.scatter_superseded()
     b = tb.build_pair_lists(tt(rmin), tt(rmax), tt(vis), W, H,
                             capacity=8192)
     _assert_same(a, b)
     assert 0 < int(b.raw_total) < 8192 and not bool(b.overflowed)
-    area = np.where(vis, np.clip(rmax - rmin, 0, None).prod(-1), 0)
-    want = (int(np.sum(area[:-1] == 0))
-            + _spare_superseded(_tile_counts(rmin, rmax, vis, ntx, nty),
-                                tb.G_CHUNK))
-    assert want >= n - active - 1
-    assert tb.scatter_superseded() - s0 == want
 
 
 def test_emission_path_long_tail_padding():
     """The emission path with `big_cap` well above the rects wider than
     K: `markb`'s padding rows past `n_big` form one run. Equal to the JAX
-    package; the superseded count is that run but its last entry plus the
-    spare scatter's repeats."""
+    package."""
     W, H, n, big_cap = 96, 64, 300, 256
     ntx, nty = jb.tile_grid_dims(W, H)
     rmin, rmax, vis = _street_rects(5, n, ntx, nty, 150)
     kw = dict(capacity=8192, tail_cap=2048, big_cap=big_cap)
     a = jb.build_pair_lists(jnp.asarray(rmin), jnp.asarray(rmax),
                             jnp.asarray(vis), W, H, **kw)
-    s0 = tb.scatter_superseded()
     b = tb.build_pair_lists(tt(rmin), tt(rmax), tt(vis), W, H, **kw)
     _assert_same(a, b)
     assert not bool(b.overflowed)
     area = np.where(vis, np.clip(rmax - rmin, 0, None).prod(-1), 0)
     n_big = int(np.sum(area > tb.EMIT_K))
     assert 0 < n_big < big_cap // 2
-    want = (big_cap - 1 - n_big
-            + _spare_superseded(_tile_counts(rmin, rmax, vis, ntx, nty),
-                                tb.G_CHUNK))
-    assert tb.scatter_superseded() - s0 == want

@@ -156,8 +156,7 @@ def test_binning_fill_pads_into_kernel(cuda):
 def test_marker_path_street_slots_match_cpu(cuda):
     """The street scene's slot layout on the marker path: 4,325,376 slots,
     the 3,659,840 inactive ones trailing the depth order. The card's pair
-    lists equal the CPU's field for field, and both tally the same
-    superseded scatter entries: at least the trailing run but its last."""
+    lists equal the CPU's field for field."""
     n, active = 4_325_376, 665_536
     W, H, capacity = 1600, 1066, 1 << 23
     ntx, nty = binning.tile_grid_dims(W, H)
@@ -171,18 +170,15 @@ def test_marker_path_street_slots_match_cpu(cuda):
     rmin[~vis] = rmax[~vis] = 0
     got = {}
     for dev in ("cpu", cuda):
-        s0 = binning.scatter_superseded()
-        lists = binning.build_pair_lists(
+        got[str(dev)] = binning.build_pair_lists(
             torch.as_tensor(rmin, dtype=torch.int32, device=dev),
             torch.as_tensor(rmax, dtype=torch.int32, device=dev),
             torch.as_tensor(vis, device=dev), W, H, capacity)
-        got[str(dev)] = lists, binning.scatter_superseded() - s0
-    (a, sa), (b, sb) = got["cpu"], got["cuda"]
+    a, b = got["cpu"], got["cuda"]
     assert 0 < int(a.raw_total) < capacity and not bool(a.overflowed)
     for f in ("pair_src", "pair_valid", "tile_nonempty", "chunk_meta",
               "raw_total", "padded_total"):
         assert torch.equal(getattr(a, f), getattr(b, f).cpu()), f
-    assert sa == sb >= n - active - 1
 
 
 @pytest.mark.cuda

@@ -1,22 +1,25 @@
 """The CUDA graph of `rasterize`'s eval path (ops/raster_graph.py).
 
 On the CPU: the graph's key is the same across camera poses and scene
-values and differs for each field and module switch that shapes the work;
+values, differs for each field and module switch that shapes eval work
+and not for the train-only switch; every tensor argument gets a buffer;
+every camera field is copied, keyed or one the eval path does not read;
 hooks, grad, a mesh axis and CPU inputs take the eager path; the routing
 (eager, capture, replay, keys in turns, `eager()`, `release()`) with the
 capture and replay stood in for; a replay's advance of the host counters.
 On the card (marked `cuda`): replay against eager bit for bit over 20
-poses on both binning paths and two tilings, returned tensors that the
-next call leaves alone, the kernel launch counters against eager and
-against a profiler trace's kernel records, binning's scatter counters on
-the street scene's slot layout, a new key freeing the old graph, and
-another scene tensor of the same shape.
+poses on both binning paths and two tilings and on the street scene's
+slot layout, returned tensors that the next call leaves alone, the kernel
+launch counters against eager and against a profiler trace's kernel
+records, a new key freeing the old graph, and another scene tensor of the
+same shape.
 
 This file imports neither JAX nor the JAX package:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_raster_graph.py
 """
+import dataclasses
 import inspect
 import math
 import weakref
@@ -28,7 +31,7 @@ import torch
 from gaussianrpg_tpu_torch.ops import binning, blend, raster_graph, scan
 from gaussianrpg_tpu_torch.ops import rasterize as R
 from gaussianrpg_tpu_torch.parallel.collectives import Axis
-from gaussianrpg_tpu_torch.render.camera import make_camera
+from gaussianrpg_tpu_torch.render.camera import Camera, make_camera
 from gaussianrpg_tpu_torch.tools._timing import kernel_trace
 
 from .torch_parity import one_cpu_thread  # noqa: F401  (autouse fixture)
@@ -139,13 +142,83 @@ def test_key_differs_for_each_keyed_field(field):
 
 @pytest.mark.parametrize("module,name,value", [
     (binning, "EMIT_PAIRS", False), (binning, "EMIT_K", 3),
-    (binning, "SUB_CHUNKS", 2), (R, "DERIVE_GM", False)])
+    (binning, "SUB_CHUNKS", 2)])
 def test_key_differs_for_each_module_switch(module, name, value,
                                             monkeypatch):
     call = _base()
     before = raster_graph.key(call)
     monkeypatch.setattr(module, name, value)
     assert raster_graph.key(call) != before
+
+
+def test_key_ignores_the_train_only_switch(monkeypatch):
+    """`rasterize.DERIVE_GM` shapes train calls only, and those never
+    engage the graph: flipping it leaves an eval call's key as it was."""
+    call = _base()
+    before = raster_graph.key(call)
+    monkeypatch.setattr(R, "DERIVE_GM", not R.DERIVE_GM)
+    assert raster_graph.key(call) == before
+
+
+def test_every_tensor_argument_gets_a_buffer():
+    """Every argument of `rasterize` that may be a tensor, given one, and
+    each camera matrix the path reads get a buffer of their own, of the
+    same shape and dtype, from the function the capture makes them with."""
+    tensor_args = {n for n, p in inspect.signature(
+        R.rasterize).parameters.items() if "Tensor" in str(p.annotation)}
+    call = _base()
+    call.update({n: torch.zeros(2000, 2) for n in tensor_args
+                 if call[n] is None})
+    assert len(tensor_args) >= 10
+    bufs, cam_bufs = raster_graph._buffers(call)
+    assert set(bufs) == tensor_args
+    assert set(cam_bufs) == set(raster_graph.CAMERA)
+    pairs = [(b, call[n]) for n, b in bufs.items()] + [
+        (b, getattr(call["camera"], n)) for n, b in cam_bufs.items()]
+    for b, t in pairs:
+        assert (b.shape, b.dtype) == (t.shape, t.dtype)
+        assert b.data_ptr() != t.data_ptr()
+
+
+# the camera's fields the path does not read: neither copied nor keyed
+UNREAD = {"K", "ego_pose", "extrinsic", "timestamp", "frame", "image_id",
+          "cam_id", "meta"}
+
+
+def test_every_camera_field_is_copied_keyed_or_unread():
+    """A field added to `Camera` fails here until it is put in
+    `raster_graph.CAMERA`, `CAMERA_KEY` or the unread set above."""
+    copied, keyed = set(raster_graph.CAMERA), set(raster_graph.CAMERA_KEY)
+    assert not (copied & keyed or copied & UNREAD or keyed & UNREAD)
+    fields = {f.name for f in dataclasses.fields(Camera)}
+    assert fields == copied | keyed | UNREAD
+
+
+@pytest.mark.parametrize("color_from", ["colors", "shs"])
+def test_the_eval_path_reads_no_unread_camera_field(color_from):
+    """The eager eval path, run with a camera that records what is read
+    of it, reads none of the fields that a replay neither copies nor
+    keys, with colours given and from spherical harmonics."""
+    read = set()
+    fields = {f.name for f in dataclasses.fields(Camera)}
+
+    class Recording(Camera):
+        def __getattribute__(self, name):
+            if name in fields:
+                read.add(name)
+            return object.__getattribute__(self, name)
+
+    cam = _camera("cpu")
+    call = _base(camera=Recording(**{n: getattr(cam, n) for n in fields}))
+    if color_from == "shs":
+        call.update(colors=None, sh_degree=1,
+                    shs=torch.rand(2000, 4, 3, generator=torch.Generator()
+                                   .manual_seed(0)))
+    read.clear()
+    out = R.rasterize(**call, device="cpu")
+    assert out.color.shape == (3, H, W)
+    assert read and not read & UNREAD
+    assert read <= set(raster_graph.CAMERA) | set(raster_graph.CAMERA_KEY)
 
 
 # -- who engages -----------------------------------------------------------
@@ -284,25 +357,22 @@ class _Graph:
 
 def test_replay_advances_the_host_counters_by_the_capture():
     """A replay adds what its capture ran to kernel B's and A's launch
-    counters, A's elements and binning's scatter calls and entries."""
+    counters and A's elements."""
     z = torch.zeros(1, 4, 4)
     out = R.RasterOut(color=z.expand(3, 4, 4), depth=z, alpha=z,
                       semantic=torch.zeros(0, 4, 4),
                       radii=torch.zeros(2, dtype=torch.int32),
                       means2d=torch.zeros(2, 2), overflow=torch.tensor(False),
                       n_pairs=torch.tensor(3))
-    held = raster_graph._Held("k", _Graph(), {}, {}, out, (1, 2, 3, 4, 5))
-    before = raster_graph._counters()
+    held = raster_graph._Held("k", _Graph(), {}, {}, out, (1, 2, 3))
+    before = (blend.launches, scan.launches, scan.elements)
     try:
         got = raster_graph._replay(held, {"camera": None})
-        assert raster_graph._counters() == tuple(
-            a + d for a, d in zip(before, held.launches))
-        assert (blend.launches, scan.launches, scan.elements,
-                binning.scatter_counts["calls"],
-                binning.scatter_counts["entries"]) == \
-            raster_graph._counters()
+        assert (blend.launches, scan.launches, scan.elements) == (
+            before[0] + 1, before[1] + 2, before[2] + 3)
     finally:
-        raster_graph._set_counters(before)
+        raster_graph._advance((-1, -2, -3))
+    assert (blend.launches, scan.launches, scan.elements) == before
     assert torch.equal(got.color, out.color) and got.radii is not out.radii
 
 
@@ -463,32 +533,30 @@ def test_another_scene_tensor_changes_the_output_as_eager(cuda, fresh):
 
 
 @pytest.mark.cuda
-def test_replay_advances_the_scatter_counters_as_eager(cuda):
+def test_replay_equals_eager_on_the_street_slot_layout(cuda):
     """The street scene's slot layout (4,325,376 slots, 665,536 of them
-    active) through the graph: one replay advances binning's scatter
-    calls and entries on the host, and its superseded tally on the card,
-    by what an eager call does; the capture call warms up and replays."""
+    active, the rest trailing the depth order on the marker path) through
+    the graph: the capture call and a replay, at poses of their own,
+    equal the eager call bit for bit."""
     n, active = 4_325_376, 665_536
     scene = _scene(cuda, n=n, seed=5)
     scene["scales"] = scene["scales"] * 0.05
     scene["active_mask"] = torch.arange(n, device=cuda) < active
     bg = torch.zeros(3, device=cuda)
-    cam = _camera(cuda, pose=2)
-    sc = binning.scatter_counts
+    assert not binning.emit_active(n, math.prod(binning.tile_grid_dims(W,
+                                                                       H)))
 
-    def deltas():
-        c, e, s = sc["calls"], sc["entries"], binning.scatter_superseded()
-        out = R.rasterize(camera=cam, bg_color=bg, capacity=1 << 22,
-                          device="cuda", **scene)
-        assert int(out.n_pairs) > 0 and not bool(out.overflow)
-        return (sc["calls"] - c, sc["entries"] - e,
-                binning.scatter_superseded() - s)
+    def render(pose):
+        return R.rasterize(camera=_camera(cuda, pose=pose), bg_color=bg,
+                           capacity=1 << 22, device="cuda", **scene)
 
+    c0 = dict(R.graph_counts)
     with torch.no_grad():
-        eager, capture, replay = deltas(), deltas(), deltas()
-    ntx, nty = binning.tile_grid_dims(W, H)
-    assert eager[:2] == (2, n + ntx * nty)
-    assert eager[2] >= n - active - 1
-    assert replay == eager
-    assert capture == tuple(2 * d for d in eager)
-    assert R.graph_counts["replays"] > 0
+        got = [render(p) for p in range(3)]    # eager, capture, replay
+        with R.eager():
+            ref = [render(p) for p in range(3)]
+    assert R.graph_counts["captures"] - c0["captures"] == 1
+    assert R.graph_counts["replays"] - c0["replays"] == 2
+    for g, r in zip(got, ref):
+        assert int(r.n_pairs) > 0 and not bool(r.overflow)
+        _assert_equal(g, r)
