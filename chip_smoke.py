@@ -53,10 +53,15 @@ Phases, one JSON line each (any failure ends the run with exit code 1):
           against ridden-gm gradients on the card, bit for bit;
   frame   one frozen-scene frame through `rasterize` at 64x32 (emission
           binning) and 16x16 (marker binning), each with two kernel A
-          fills and one kernel B launch; per-frame ms, pair counts, launch
-          counts, all of replays of the render's CUDA graph, whose
-          counted launches must equal kernel A's and B's records in a
-          profiler trace (`CountedTrace`);
+          fills, one kernel B launch and one row gather (two on the
+          marker path: the depth take too); per-frame ms, pair counts,
+          launch counts, all of replays of the render's CUDA graph, whose
+          counted launches must equal kernel A's, B's and the gather's
+          records in a profiler trace (`CountedTrace`); then, on each
+          tiling's own field table and row ids (an eager frame), the row
+          gathers (the depth take, a permutation of all N rows, and the
+          pair gather with its -1 padding) against their plain version
+          bit for bit, each timed beside it and `index_select`;
   train_frame  the bench train step (`rasterize` with both hooks, loss
           sum(color^2) + sum(depth^2)) on the frozen scene at both tilings:
           step ms, launches of kernels A, B and C, the pair-gather
@@ -67,8 +72,9 @@ Phases, one JSON line each (any failure ends the run with exit code 1):
           ms, AEB braking, how often the render's CUDA graph was
           captured, replayed or run eagerly (`rasterize.graph_counts`),
           and, from the third frame on (all replays), the launches of
-          kernels A and B counted against their records in the trace
-          (`CountedTrace`), which must agree; then kernels B and C
+          kernels A and B and the row gather counted against their
+          records in the trace (`CountedTrace`), which must agree; then
+          kernels B and C
           against their plain versions, as in phase kernel, on the pair
           lists of the loop's first frame (the main
           path's own inputs: sigma 10-400 px at opacity 0.1, which the
@@ -182,17 +188,16 @@ Phases, one JSON line each (any failure ends the run with exit code 1):
           on 1 rank (NCCL) and on 2 gloo ranks sharing the card
           (`phase_mesh`).
 The line before the last is the kernel table ({"kernels": [...]}: kernels
-A, B and C with their launches summed over the closed loop, perception
-(c)'s and (d)'s loops, train_frame, train, waymo, eval, ros2, prep and
-mesh
-runs (waymo's, eval's, prep's and mesh's counted in their subprocesses
-too; a replay of the render's CUDA graph counts the launches its capture
-ran, which phases frame and loop hold to the profiler's kernel records),
-B's and C's times from
-the loop
-frame, A's from the trainer's capacity, their errors the largest over
-every shape checked; the five tool kernels with their
-launches in the tools' runs, each counted from zero); the card's name
+A, B and C and the row gather with their launches summed over the closed
+loop, perception (c)'s and (d)'s loops, train_frame, train, waymo, eval,
+ros2, prep and mesh runs (waymo's, eval's, prep's and mesh's counted in
+their subprocesses too; a replay of the render's CUDA graph counts the
+launches its capture ran, which phases frame and loop hold to the
+profiler's kernel records), B's and C's times from the loop frame, A's
+from the trainer's capacity, the gather's from phase frame's 16x16 pair
+gather, their errors the largest over every shape checked; the other four
+tool kernels with their launches in the tools' runs, each counted from
+zero); the card's name
 and power limit are printed first and again before it; the last line is
 the device verdict.
 Needs CUDA: without it (or without the package beside it) the script
@@ -471,17 +476,19 @@ def phase_kernels(torch):
 
 
 TOOLS_RTOL = 1e-5   # floor sums, stripped blend, mm_orient: of the max
-# (name in the kernel table, tool module, source, the TPU kernel it replaces)
+# (name in the kernel table, tool module, source, the TPU kernel it
+# replaces, the module of its launch counter)
 TOOL_KERNELS = [
     ("gather_rows", "gather_fold", "gather_rows.cu",
-     "tools/gather_fold.py:65"),
+     "tools/gather_fold.py:65", "ops.gather"),
     ("blend_floor", "blend_floor", "blend_floor.cu",
-     "tools/blend_floor.py:100"),
-    ("mm_orient", "mm_orient", "mm_orient.cu", "tools/mm_orient.py:62"),
+     "tools/blend_floor.py:100", "tools.blend_floor"),
+    ("mm_orient", "mm_orient", "mm_orient.cu", "tools/mm_orient.py:62",
+     "tools.mm_orient"),
     ("floor_bench", "floor_bench", "step_floor.cu",
-     "tools/floor_bench.py:84"),
+     "tools/floor_bench.py:84", "tools.floor_bench"),
     ("floor_bench2", "floor_bench2", "step_floor.cu",
-     "tools/floor_bench2.py:71"),
+     "tools/floor_bench2.py:71", "tools.floor_bench2"),
 ]
 
 
@@ -758,14 +765,17 @@ def phase_tools(torch):
 
     mods = {name: importlib.import_module(
         f"gaussianrpg_tpu_torch.tools.{module}")
-        for name, module, _, _ in TOOL_KERNELS}
+        for name, module, _, _, _ in TOOL_KERNELS}
+    counters = {name: importlib.import_module(
+        f"gaussianrpg_tpu_torch.{counter}")
+        for name, _, _, _, counter in TOOL_KERNELS}
     runs = {}
     t0 = time.time()
-    for mod in mods.values():
+    for mod in counters.values():
         mod.launches = 0
     for name, mod in mods.items():
         runs[name] = mod.run("cuda")
-    launches = {name: mod.launches for name, mod in mods.items()}
+    launches = {name: mod.launches for name, mod in counters.items()}
     ok = all(v > 0 for v in launches.values())
     emit(dict(phase="tools", step="run", seconds=time.time() - t0,
               launches=launches, ok=ok))
@@ -775,7 +785,7 @@ def phase_tools(torch):
               "floor_bench2": check_floor_bench2,
               "mm_orient": check_mm_orient}
     out = {}
-    for name, module, source, replaces in TOOL_KERNELS:
+    for name, module, source, replaces, _ in TOOL_KERNELS:
         rec = checks[name](torch, mods[name], runs[name])
         out[name] = {"name": name, "route": "cuda",
                      "source": f"gaussianrpg_tpu_torch/csrc/{source}",
@@ -1019,13 +1029,16 @@ def phase_small_train(torch):
 
 def phase_frame(torch, kout):
     """One frozen-scene frame through `rasterize` at both tilings, timed
-    and counted once the render's CUDA graph is captured: five replays."""
-    from gaussianrpg_tpu_torch.ops import blend, scan
+    and counted once the render's CUDA graph is captured: five replays;
+    then the frame's row gathers on its own inputs (`check_gathers`).
+    Returns the gather's record for the kernel table: 16x16's pair
+    gather timed, the error the largest over both tilings."""
+    from gaussianrpg_tpu_torch.ops import binning
     from gaussianrpg_tpu_torch.ops.rasterize import rasterize
 
     cam, (means, opac, colors, scales, quats), H, W = kout["scene"]
     bg = torch.zeros(3, device="cuda")
-    colors_out = {}
+    colors_out, gathers_rec = {}, {}
     for tx, ty in ((64, 32), (16, 16)):
         sizes = kout["sizes"][(tx, ty)]
 
@@ -1039,7 +1052,7 @@ def phase_frame(torch, kout):
         frame()
         out = frame()      # the second captures the render's CUDA graph
         torch.cuda.synchronize()
-        blend.launches = scan.launches = 0
+        reset_counts()
         times = []
         for _ in range(5):
             t0 = torch.cuda.Event(enable_timing=True)
@@ -1049,7 +1062,8 @@ def phase_frame(torch, kout):
             t1.record()
             torch.cuda.synchronize()
             times.append(t0.elapsed_time(t1))
-        launches = {"blend_fwd": blend.launches, "cummax": scan.launches}
+        launches = {k: v for k, v in launch_counts().items()
+                    if k in CountedTrace.NAMES}
         finite = bool(torch.isfinite(out.color).all())
         with CountedTrace(torch) as counted:
             for i in range(10):
@@ -1058,10 +1072,16 @@ def phase_frame(torch, kout):
                 frame()
         traced = counted.result
         # two running-max fills per frame on either binning path, of five
-        # replays, as the trace's records say
+        # replays, as the trace's records say; one row gather (the pair
+        # gather) on the emission path, two on the marker path (the depth
+        # take too)
+        gathers = 1 if binning.emit_active(
+            means.shape[0], math.prod(binning.tile_grid_dims(W, H, tx,
+                                                             ty))) else 2
         ok = (not bool(out.overflow) and finite
               and tuple(out.color.shape) == (3, H, W)
-              and launches == {"blend_fwd": 5, "cummax": 5 * 2}
+              and launches == {"blend_fwd": 5, "cummax": 5 * 2,
+                               "gather_rows": 5 * gathers}
               and traced["ok"] and traced["counted"] == launches
               and traced["graph_counts"] == dict(captures=0, eager=0,
                                                  replays=5))
@@ -1071,6 +1091,8 @@ def phase_frame(torch, kout):
                   finite=finite, launches=launches, traced=traced, ok=ok))
         check(ok, "frame", f"frame at {tx}x{ty} failed")
         colors_out[(tx, ty)] = out.color
+        gathers_rec[(tx, ty)] = check_gathers(
+            torch, recorded_gathers(frame), f"{tx}x{ty}", gathers)
     diff = (colors_out[(64, 32)] - colors_out[(16, 16)]).abs()
     # the tilings differ only by sub-1/255 alpha tails (rect-based
     # candidate sets); their mean must agree closely
@@ -1079,35 +1101,117 @@ def phase_frame(torch, kout):
         diff.mean()), max_abs=float(diff.max()), tolerance_mean=1e-3,
         ok=ok))
     check(ok, "frame", "tilings disagree")
+    return dict(gathers_rec[(16, 16)]["pair_gather"], max_abs_err=max(
+        g["max_abs_err"] for rec in gathers_rec.values()
+        for g in rec.values()))
+
+
+def recorded_gathers(run):
+    """The (table, row ids) of each row gather in `run()`, recorded from
+    `ops.gather.gather_rows` by a wrapper that calls through. `run()`
+    renders eagerly (`rasterize.eager`): a replay calls no wrapper."""
+    from gaussianrpg_tpu_torch.ops import gather, rasterize
+
+    calls = []
+    orig = gather.gather_rows
+
+    def recording(fields, src):
+        calls.append((fields, src))
+        return orig(fields, src)
+
+    gather.gather_rows = recording
+    try:
+        with rasterize.eager():
+            run()
+    finally:
+        gather.gather_rows = orig
+    return calls
+
+
+def check_gathers(torch, calls, tile, expected):
+    """The row gathers of one eval frame, on its own tables and row ids:
+    the marker path's depth take (a permutation of all N rows) and the
+    pair gather (-1 padding ids), or the pair gather alone on the
+    emission path. Each against the plain version bit for bit, timed
+    beside it and beside `index_select` of the clamped ids (the eval
+    path's take before the kernel), with its bytes' bound: each distinct
+    row read once, the ids, the rows written."""
+    from gaussianrpg_tpu_torch.ops import gather
+    from gaussianrpg_tpu_torch.tools._timing import device_ms
+
+    check(len(calls) == expected, "frame",
+          f"{tile}: {len(calls)} row gathers, expected {expected}")
+    out = {}
+    for name, (fields, src) in zip(("depth_take", "pair_gather")[-expected:],
+                                   calls):
+        got = gather.gather_rows(fields, src)
+        ref = gather.gather_rows_plain(fields, src)
+        exact = bool(torch.equal(got, ref))
+        err = float((got - ref).abs().max()) if got.numel() else 0.0
+        src64 = torch.clamp(src, min=0).long()
+        rows, nf = src.shape[0], fields.shape[1]
+        distinct = int(torch.unique(src[src >= 0]).numel())
+        b_ms, b_by = bound(distinct * nf * 4 + rows * 4 + rows * nf * 4, 0)
+        out[name] = dict(
+            rows=rows, table_rows=fields.shape[0], nf=nf,
+            padding=int((src < 0).sum()), distinct_rows=distinct,
+            exact=exact, max_abs_err=err,
+            ms=device_ms(lambda: gather.gather_rows(fields, src), reps=10),
+            plain_ms=device_ms(lambda: gather.gather_rows_plain(fields, src),
+                               reps=10),
+            library_ms=device_ms(lambda: fields.index_select(0, src64),
+                                 reps=10),
+            bound_ms=b_ms, bound_by=b_by)
+        del got, ref, src64
+    ok = all(r["exact"] for r in out.values())
+    emit(dict(phase="frame", kernel="gather_rows", tile=tile,
+              tolerance="bit for bit", warm="each call on the same rows",
+              **out, ok=ok))
+    check(ok, "frame", f"{tile}: a row gather disagrees with its plain "
+          "version")
+    return out
+
+
+# the main path's kernels by their names in the kernel table, each with
+# its host launch counter; the train step launches all but the row gather
+COUNTED = ("blend_fwd", "cummax", "blend_bwd", "gather_rows")
+TRAIN_COUNTED = ("blend_fwd", "cummax", "blend_bwd")
+
+
+def zero_counts():
+    return dict.fromkeys(COUNTED, 0)
 
 
 def launch_counts():
-    from gaussianrpg_tpu_torch.ops import blend, scan
+    from gaussianrpg_tpu_torch.ops import blend, gather, scan
 
     return {"blend_fwd": blend.launches, "cummax": scan.launches,
-            "blend_bwd": blend.bwd_launches}
+            "blend_bwd": blend.bwd_launches, "gather_rows": gather.launches}
 
 
 def reset_counts():
-    from gaussianrpg_tpu_torch.ops import blend, scan
+    from gaussianrpg_tpu_torch.ops import blend, gather, scan
 
     blend.launches = blend.bwd_launches = scan.launches = 0
+    gather.launches = 0
 
 
 class CountedTrace:
-    """Kernels B's and A's records in a profiler trace against what their
-    launch counters (`blend.launches`, `scan.launches`) and
-    `rasterize.graph_counts` advanced by over the same stretch. A replay
-    of the render's CUDA graph launches no kernel from the host: the
-    counters advance by what its capture ran, and this holds them to the
-    kernels the card ran. The trace can drop the first records after the
+    """Kernels B's and A's and the row gather's records in a profiler
+    trace against what their launch counters (`blend.launches`,
+    `scan.launches`, `gather.launches`) and `rasterize.graph_counts`
+    advanced by over the same stretch. A replay of the render's CUDA graph
+    launches no kernel from the host: the counters advance by what its
+    capture ran, and this holds them to the kernels the card ran. The
+    trace can drop the first records after the
     profiler starts (`tools/_timing.kernel_trace`), so what runs before
     `keep()` is a warm-up step whose records it discards; what runs from
     `keep()` to the end of the `with` block is kept. `result` (after the
     block): records and counted launches of each kernel, the graph
     counts, and `ok`, that they agree."""
 
-    NAMES = {"blend_fwd": "blend_fwd", "cummax": "cummax_lookback"}
+    NAMES = {"blend_fwd": "blend_fwd", "cummax": "cummax_lookback",
+             "gather_rows": "gather_rows"}
 
     def __init__(self, torch):
         from torch.profiler import ProfilerActivity, profile, schedule
@@ -1155,7 +1259,8 @@ class CountedTrace:
         graphs = {k: v - self.start[1][k] for k, v in end[1].items()}
         self.result = dict(records=records, counted=counted,
                            graph_counts=graphs,
-                           ok=records == counted and counted["cummax"] > 0)
+                           ok=records == counted and counted["cummax"] > 0
+                           and counted["gather_rows"] > 0)
         return False
 
 
@@ -1260,7 +1365,7 @@ def phase_train_frame(torch, kout):
         seg_abs, seg_rel, cap = seg_sum_error(torch, fs, W, H, sizes)
         del fs
         ok = (not bool(out.overflow) and finite and sink_ok
-              and all(v > 0 for v in launches.values()))
+              and all(launches[k] > 0 for k in TRAIN_COUNTED))
         emit(dict(phase="train_frame", tile=f"{tx}x{ty}",
                   ms=statistics.median(times), ms_all=times,
                   n_pairs=int(out.n_pairs), capacity=cap,
@@ -1745,7 +1850,8 @@ def phase_train(torch):
     ok = (len(losses) == TRAIN_STEPS and bool(np.isfinite(losses).all())
           and all(falls.values())
           and len(dens) == 1 and dens[0]["n_clone"] + dens[0]["n_split"] > 0
-          and max_op <= 0.011 and all(v > 0 for v in launches.values()))
+          and max_op <= 0.011
+          and all(launches[k] > 0 for k in TRAIN_COUNTED))
     cam = cam_gt[0][0]
     with torch.no_grad():
         scene = compose(state.models, meta, arrays, cam, 0)
@@ -1921,12 +2027,13 @@ if out:  # one file a rank: ranks sharing a pipe can split each other's lines
                  os.O_WRONLY | os.O_CREAT | os.O_TRUNC)
     os.dup2(fd, 1)
     os.close(fd)
-from gaussianrpg_tpu_torch.ops import blend, scan
+from gaussianrpg_tpu_torch.ops import blend, gather, scan
 sys.argv = sys.argv[1:]
 runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
 print("launches " + json.dumps({"blend_fwd": blend.launches,
                                  "cummax": scan.launches,
-                                 "blend_bwd": blend.bwd_launches}),
+                                 "blend_bwd": blend.bwd_launches,
+                                 "gather_rows": gather.launches}),
       flush=True)
 """
 
@@ -1941,7 +2048,7 @@ def run_entry(module, args, timeout=600):
         cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
         text=True, timeout=timeout)
     lines = proc.stdout.strip().splitlines()
-    launches = {"blend_fwd": 0, "cummax": 0, "blend_bwd": 0}
+    launches = zero_counts()
     if lines and lines[-1].startswith("launches "):
         launches = json.loads(lines.pop()[len("launches "):])
     if proc.returncode != 0:
@@ -2142,7 +2249,7 @@ def phase_waymo(torch, app_flags):
                       densify="one event (iteration 35)"), ok=dropped))
         check(dropped, "waymo", "remove_static_objects kept the parked car")
         cfg = ["--config", "configs/waymo_149_1cam.yaml"]
-        launches = {"blend_fwd": 0, "cummax": 0, "blend_bwd": 0}
+        launches = zero_counts()
         runs = {}
         for name, module, args in (
                 ("train", "gaussianrpg_tpu_torch.apps.train",
@@ -2538,7 +2645,7 @@ def phase_eval(torch, tmp, opts, cfg_obj, trainer_evals, app_flags):
     t_phase = time.time()
     model_path = opts[opts.index("model_path") + 1]
     cfg = ["--config", "configs/waymo_149_1cam.yaml"]
-    launches = {"blend_fwd": 0, "cummax": 0, "blend_bwd": 0}
+    launches = zero_counts()
     checks = {"blend_fwd": [], "cummax": []}
 
     def count(ln):
@@ -2833,7 +2940,7 @@ def phase_ros2(torch, tmp, opts):
     sim_time = float(WAYMO_SIM_TIME)
     weights = os.path.join(tmp, "yolov5s_ros2.pt")
     torch.save(yolo_state_dict(torch, ROS_YOLO_SEED), weights)
-    launches = {"blend_fwd": 0, "cummax": 0, "blend_bwd": 0}
+    launches = zero_counts()
     real_setup = simulate.config_setup
     shared = {}
 
@@ -3197,7 +3304,7 @@ def phase_prep(torch, card):
         record = os.path.join(tmp, "segment.tfrecord")
         frames, jpegs, rec_s = prep_record(torch, record, card)
         root = os.path.join(tmp, "scene")
-        launches = {"blend_fwd": 0, "cummax": 0, "blend_bwd": 0}
+        launches = zero_counts()
         stages = {}
         for name, module, args in (
                 ("converter", "gaussianrpg_tpu_torch.apps.waymo_converter",
@@ -3767,7 +3874,7 @@ def run_launch(nproc, module, args, tmp, timeout=600):
         if os.path.exists(path):
             with open(path) as f:
                 texts.append(f.read())
-    lines, launches = [], {"blend_fwd": 0, "cummax": 0, "blend_bwd": 0}
+    lines, launches = [], zero_counts()
     for ln in "\n".join(t.strip() for t in texts if t.strip()).splitlines():
         if ln.startswith("launches "):
             for k, v in json.loads(ln[len("launches "):]).items():
@@ -3872,7 +3979,8 @@ def phase_mesh(torch):
         }
         launches = {k: r0["launches"][k] + r1["launches"][k]
                     + cli_launches[k] for k in cli_launches}
-        ok = all(gates.values()) and all(v > 0 for v in launches.values())
+        ok = all(gates.values()) and all(launches[k] > 0
+                                         for k in TRAIN_COUNTED)
         emit(dict(phase="mesh", gaussians=MESH_BKGD, actors=2,
                   size=f"{MESH_W}x{MESH_H}", ranks=2, backend="gloo",
                   devices=1, steps=MESH_STEPS, capacity=r0["capacity"],
@@ -3949,7 +4057,7 @@ def main():
         tools = phase_tools(torch)
         phase_small(torch)
         phase_small_train(torch)
-        phase_frame(torch, kout)
+        g = phase_frame(torch, kout)
         runs = [phase_train_frame(torch, kout)]
         del kout["scene"]
         torch.cuda.empty_cache()
@@ -4006,7 +4114,16 @@ def main():
          "launches": launches["blend_bwd"], "max_abs_err": errs_d,
          "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
          "bound_by": d["bound_by"], "library_ms": None},
-    ] + [tools[name] for name, _, _, _ in TOOL_KERNELS]})
+        {"name": "gather_rows", "route": "cuda",
+         "source": "gaussianrpg_tpu_torch/csrc/gather_rows.cu",
+         "replaces": "tools/gather_fold.py:65",
+         "launches": launches["gather_rows"],
+         "max_abs_err": max(g["max_abs_err"],
+                            tools["gather_rows"]["max_abs_err"]),
+         "ms": g["ms"], "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
+         "bound_by": g["bound_by"], "library_ms": g["library_ms"]},
+    ] + [tools[name] for name, _, _, _, _ in TOOL_KERNELS
+         if name != "gather_rows"]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

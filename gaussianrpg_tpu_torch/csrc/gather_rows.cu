@@ -59,14 +59,21 @@ __global__ void __launch_bounds__(kThreads)
 
 // fields [n_rows, nf] and out [n_out, nf] float32, src [n_out] int32; both
 // float arrays 16-byte aligned. Returns 0, a CUDA error code, or -1 for an
-// nf that is not a positive multiple of 4 or whose chunk (with its row ids)
-// needs more than 48 KB of shared memory (nf above 92).
+// nf that is not a positive multiple of 4. A chunk wider than the 48 KB a
+// block gets by default (nf above 92) opts in to more dynamic shared
+// memory, up to the card's limit per block (227 KB on sm_90: nf up to 452);
+// a wider one is refused with the attribute's error.
 extern "C" int grpg_gather_rows(const float* fields, long long n_rows, int nf,
                                 const int* src, long long n_out, float* out,
                                 void* stream) {
   if (nf <= 0 || nf % 4 != 0) return -1;
   const size_t smem = sizeof(float) * static_cast<size_t>(kChunk) * nf;
-  if (smem + sizeof(int) * kChunk > 48 * 1024) return -1;
+  if (smem + sizeof(int) * kChunk > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gather_rows, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
   if (n_out == 0) return 0;
   const long long blocks = (n_out + kChunk - 1) / kChunk;
   if (blocks > 0x7FFFFFFFLL) return -1;

@@ -10,7 +10,11 @@ statistic, riding the F_RADIUS column). In train mode every pair gather
 goes through an autograd Function whose backward is the sort-free segment
 sum (`_PairGather`, `_PairGatherDerive`, `_PermTake`) instead of the
 `index_add_` scatter that autograd of `index_select` would use; the
-preprocess, SH and field assembly are differentiated by autograd.
+preprocess, SH and field assembly are differentiated by autograd. In eval
+mode both row takes of the field table, the marker path's depth-order
+take and the pair gather, run the hand-written row gather
+`csrc/gather_rows.cu` (ops/gather.py), which writes the padding slots'
+rows as zeros.
 
 Under a profiler the stages record the spans `raster.fields`
 (`rasterize`'s primitive stage), `raster.sort` (depth order), `raster.bin`
@@ -29,7 +33,7 @@ import torch
 from ..parallel.collectives import Axis, gather_field_rows
 from ..utils.device import on_device, resolve_device
 from ..utils.spans import span
-from . import binning, raster_graph
+from . import binning, gather, raster_graph
 from .raster_graph import eager, graph_counts  # noqa: F401  (re-exported)
 from .blend import NF_BASE, blend_pairs
 from .projection import TILE_X, TILE_Y, preprocess, transform_point_4x3
@@ -382,7 +386,7 @@ def pair_rows(
                 inv_order[order] = torch.arange(n, device=dev)
                 ext_sorted = _PermTake.apply(ext, order, inv_order)
             else:
-                ext_sorted = ext.index_select(0, order)
+                ext_sorted = gather.gather_rows(ext, order.to(torch.int32))
             rect_s = ext_sorted[:, rect_col:rect_col + 4].detach().to(
                 torch.int32)
             rect_min_s, rect_max_s = rect_s[:, 0:2], rect_s[:, 2:4]
@@ -396,19 +400,18 @@ def pair_rows(
                 sub_chunks=sub_chunks)
 
     with span("raster.gather"):
+        if not train_mode:
+            return gather.gather_rows(fields_sorted, lists.pair_src), lists
         src = torch.clamp(lists.pair_src, min=0)
         valid = lists.pair_valid.to(fs.fields.dtype)
-        if train_mode and lists.pair_tile is not None:
+        if lists.pair_tile is not None:
             gdata = _PairGatherDerive.apply(fields_sorted, src, valid,
                                             lists.pair_tile, lists.seg_offs,
                                             lists.seg_area, ntx, col0)
-        elif train_mode:
+        else:
             gdata = _PairGather.apply(fields_sorted, src, valid,
                                       lists.pair_gm, lists.seg_offs,
                                       lists.seg_area)
-        else:
-            gdata = (_take8(fields_sorted, src) * valid[:, None]) \
-                .contiguous()
     return gdata, lists
 
 

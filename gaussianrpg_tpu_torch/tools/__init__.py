@@ -13,9 +13,10 @@ kernel in `csrc/`:
 and, with no counterpart there, `scan_bench` (kernel A at the main path's
 capacities, beside other builds of `cummax.cu`) and `bwd_ablate`.
 
-Each module has the CUDA wrapper of its kernel (launch counter `launches`),
-the plain PyTorch version of the same function, `run(device=None,
-small=False) -> dict` and `main()`:
+Each module has the CUDA wrapper of its kernel (launch counter `launches`;
+`gather_fold` re-exports the rasterizer's, whose counter is
+`ops.gather.launches`), the plain PyTorch version of the same function,
+`run(device=None, small=False) -> dict` and `main()`:
 
     python -m gaussianrpg_tpu_torch.tools.<name> [--device cpu] [--small]
 

@@ -6,82 +6,30 @@ The JAX tool asks whether the blend kernel could gather its own pair rows
 question on the card: `gather_rows` launches `csrc/gather_rows.cu` (one
 block per 128-row chunk, rows staged in shared memory by `cp.async`, the
 front end a blend kernel that gathers its own rows would have), timed
-against `torch.index_select`, which the port's pair gather runs today
-(`ops/rasterize._take8`). Besides the tool's random rows it gathers the
-16x16 frozen frame's real `pair_src` from the depth-sorted field table.
+against `torch.index_select`, which the port's eval pair gather ran until
+it moved to this kernel (`ops/rasterize._take8`; training still runs it).
+The kernel's wrapper and its launch counter live in `ops/gather.py`, whose
+`gather_rows` and `gather_rows_plain` this module re-exports. Besides the
+tool's random rows it gathers the 16x16 frozen frame's real `pair_src`
+from the depth-sorted field table.
 
     python -m gaussianrpg_tpu_torch.tools.gather_fold [--device cpu] [--small]
 """
 from __future__ import annotations
 
 import argparse
-import ctypes
 
 import numpy as np
 import torch
 
-from ..ops import cuda_build
+from ..ops.gather import gather_rows, gather_rows_plain  # noqa: F401
 from ..utils.device import resolve_device
 from . import _scene
 from ._timing import cycling, kernel_trace, scaled, time_ms, timer_name
 
-CHUNK = 128               # rows per kernel block (the TPU kernel's G)
 NF = 16
 FULL = dict(n_rows=600_000, rows=1_179_648)
 SMALL = dict(n_rows=6000, rows=16384)
-
-launches = 0              # kernel launches through `gather_rows`
-
-
-def gather_rows_plain(fields: torch.Tensor, src: torch.Tensor):
-    """Plain version: out[i] = fields[src[i]], a zero row where src[i] is
-    outside [0, N) (the padding slots of a pair list)."""
-    ok = (src >= 0) & (src < fields.shape[0])
-    rows = fields.index_select(0, torch.where(ok, src, 0).long())
-    return torch.where(ok[:, None], rows, torch.zeros_like(rows))
-
-
-def _check(fields, src):
-    if fields.dim() != 2 or fields.dtype != torch.float32:
-        raise TypeError("gather_rows: fields must be a 2-D float32 tensor")
-    nf = fields.shape[1]
-    if nf % 4 or not 0 < (nf + 1) * CHUNK * 4 <= 48 * 1024:
-        raise ValueError(f"gather_rows: NF={nf} must be a multiple of 4 "
-                         "up to 92")
-    if src.dim() != 1 or src.dtype != torch.int32:
-        raise TypeError("gather_rows: src must be a 1-D int32 tensor")
-    if src.device != fields.device:
-        raise ValueError("gather_rows: tensors on different devices")
-
-
-def gather_rows(fields: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-    """Rows of `fields` [N, NF] float32 at `src` [P] int32 ([P, NF]), zero
-    rows where src is outside [0, N). CUDA tensors go through the kernel,
-    CPU tensors through the plain version."""
-    global launches
-    _check(fields, src)
-    if fields.device.type == "cpu":
-        return gather_rows_plain(fields, src)
-    if fields.device.type != "cuda":
-        raise ValueError(f"gather_rows: unsupported device {fields.device}")
-    fields = fields.contiguous()
-    src = src.contiguous()
-    if fields.data_ptr() % 16:
-        raise ValueError("gather_rows: fields must be 16-byte aligned")
-    out = torch.empty((src.shape[0], fields.shape[1]), dtype=torch.float32,
-                      device=fields.device)
-    fn = cuda_build.library("gather_rows").grpg_gather_rows
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(fields.device).cuda_stream
-    with torch.cuda.device(fields.device):
-        err = fn(fields.data_ptr(), fields.shape[0], fields.shape[1],
-                 src.data_ptr(), src.shape[0], out.data_ptr(), stream)
-    cuda_build.check(err, "gather_rows launch")
-    launches += 1
-    return out
 
 
 def tool_inputs(device: torch.device, small: bool):

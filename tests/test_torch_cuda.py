@@ -384,11 +384,13 @@ def _rel_written(got, ref, written):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_rows,nf,rows", [(1000, 16, 1024), (777, 24, 1000),
-                                            (5, 4, 129), (600, 92, 131)])
+                                            (5, 4, 129), (600, 92, 131),
+                                            (300, 96, 257), (50, 452, 130)])
 def test_gather_rows_kernel_matches_plain(cuda, n_rows, nf, rows):
-    """Bit for bit, on ragged row counts and widths 4-92, with row ids
+    """Bit for bit, on ragged row counts and widths 4-452 (above 92 the
+    kernel opts in to more than 48 KB of shared memory), with row ids
     that hit row 0, the last row, and padding / out-of-range ids."""
-    from gaussianrpg_tpu_torch.tools import gather_fold as gf
+    from gaussianrpg_tpu_torch.ops import gather as gf
 
     gen = torch.Generator(device=cuda).manual_seed(rows)
     fields = torch.randn((n_rows, nf), generator=gen, device=cuda)

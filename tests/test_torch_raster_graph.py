@@ -28,7 +28,8 @@ import numpy as np
 import pytest
 import torch
 
-from gaussianrpg_tpu_torch.ops import binning, blend, raster_graph, scan
+from gaussianrpg_tpu_torch.ops import (binning, blend, gather,
+                                       raster_graph, scan)
 from gaussianrpg_tpu_torch.ops import rasterize as R
 from gaussianrpg_tpu_torch.parallel.collectives import Axis
 from gaussianrpg_tpu_torch.render.camera import Camera, make_camera
@@ -357,22 +358,28 @@ class _Graph:
 
 def test_replay_advances_the_host_counters_by_the_capture():
     """A replay adds what its capture ran to kernel B's and A's launch
-    counters and A's elements."""
+    counters, A's elements and the row gather's launches."""
     z = torch.zeros(1, 4, 4)
     out = R.RasterOut(color=z.expand(3, 4, 4), depth=z, alpha=z,
                       semantic=torch.zeros(0, 4, 4),
                       radii=torch.zeros(2, dtype=torch.int32),
                       means2d=torch.zeros(2, 2), overflow=torch.tensor(False),
                       n_pairs=torch.tensor(3))
-    held = raster_graph._Held("k", _Graph(), {}, {}, out, (1, 2, 3))
-    before = (blend.launches, scan.launches, scan.elements)
+    by = (1, 2, 3, 4)
+    held = raster_graph._Held("k", _Graph(), {}, {}, out, by)
+
+    def counters():
+        return (blend.launches, scan.launches, scan.elements,
+                gather.launches)
+
+    assert len(raster_graph.COUNTERS) == len(by)
+    before = counters()
     try:
         got = raster_graph._replay(held, {"camera": None})
-        assert (blend.launches, scan.launches, scan.elements) == (
-            before[0] + 1, before[1] + 2, before[2] + 3)
+        assert counters() == tuple(b + d for b, d in zip(before, by))
     finally:
-        raster_graph._advance((-1, -2, -3))
-    assert (blend.launches, scan.launches, scan.elements) == before
+        raster_graph._advance(tuple(-d for d in by))
+    assert counters() == before
     assert torch.equal(got.color, out.color) and got.radii is not out.radii
 
 
