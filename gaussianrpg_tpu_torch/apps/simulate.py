@@ -107,13 +107,15 @@ def loop_setup(models, meta, arrays, cameras, tape, cfg,
     host (span `scene.fetch`), the box-projection detector or, when
     `cfg.sim.yolov5_weights_path` exists, YOLOv5 (fused into one step with
     the render unless `sim.separate_perception` or not
-    `sim.fused_perception`), and the ranging extrinsic, the inverse of
-    the first camera's camera->vehicle extrinsic. Returns
-    `run_closed_loop`'s keyword arguments: tape, render_fn, detector,
-    camera_template (the first camera), ranger_extrinsic, perceive_fn
-    (None unless the step is fused)."""
-    from ..render.renderer import (options_from_cfg, probe_scene_capacity,
-                                   render_scene, render_until_fit)
+    `sim.fused_perception`: `sim.pipeline.FusedPerception`, which renders
+    a frame again at a grown capacity when its pairs overflowed), and the
+    ranging extrinsic, the inverse of the first camera's camera->vehicle
+    extrinsic. Returns `run_closed_loop`'s keyword arguments: tape,
+    render_fn, detector, camera_template (the first camera),
+    ranger_extrinsic, perceive_fn (None unless the step is fused)."""
+    from ..render.renderer import (grown, options_from_cfg,
+                                   probe_scene_capacity, render_scene,
+                                   render_until_fit)
     from ..sim.detector import (VEHICLE_CLASSES, BoxProjectionDetector,
                                 YoloDetector)
     from ..utils.device import resolve_device
@@ -151,26 +153,31 @@ def loop_setup(models, meta, arrays, cameras, tape, cfg,
             # fused inline perception (sim/pipeline.py): render, letterbox,
             # YOLOv5 and the top-K prefilter on the card; only [K, 6]
             # candidates cross to the host
-            from ..sim.pipeline import finish_detections, make_fused_step
+            from ..sim.pipeline import FusedPerception, make_fused_step
             from ..sim.yolo import load_torch_checkpoint
 
             spec, params = load_torch_checkpoint(weights, device=dev)
-            H, W = cam0.height, cam0.width
+            overflow = []
 
             def render_rgb(camera):
-                return render_scene(
+                res = render_scene(
                     models, meta, arrays, camera,
                     active_sh_degree=meta.bkgd_sh_degree, options=options,
-                    device=dev).rgb
+                    device=dev)
+                overflow[:] = [res.overflow]
+                return res.rgb
 
+            def grow():
+                nonlocal options
+                options = grown(options)
+
+            hw = (cam0.height, cam0.width)
             fused, gain, pad = make_fused_step(
-                render_rgb, spec, params, (H, W), classes=VEHICLE_CLASSES)
-
-            def perceive_fn(camera):
-                det = finish_detections(fused(camera), gain, pad, (H, W))
-                return [np.array([(x0 + x1) / 2 / W, (y0 + y1) / 2 / H,
-                                  (x1 - x0) / W, (y1 - y0) / H])
-                        for x0, y0, x1, y1, conf, cls in det]
+                render_rgb, spec, params, hw, classes=VEHICLE_CLASSES)
+            # the render's policy too: a frame whose pairs overflowed is
+            # rendered again at a grown capacity before perception reads it
+            perceive_fn = FusedPerception(
+                fused, gain, pad, hw, lambda: bool(overflow[0]), grow)
             detector = None
         else:
             detector = YoloDetector(weights_path=weights, device=dev)

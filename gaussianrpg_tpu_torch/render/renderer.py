@@ -60,19 +60,26 @@ class RenderOptions:
         return dataclasses.replace(self, **kw)
 
 
+def grown(options: RenderOptions) -> RenderOptions:
+    """The options with the pair capacity (and explicit tail sizes)
+    doubled, after a render flagged overflow."""
+    options = options.replace(
+        capacity=options.capacity * 2,
+        tail_cap=(options.tail_cap * 2
+                  if options.tail_cap is not None else None),
+        big_cap=(options.big_cap * 2
+                 if options.big_cap is not None else None))
+    print(f"  pair overflow: growing capacity to {options.capacity}")
+    return options
+
+
 def render_until_fit(render_once, options: RenderOptions):
     """Render, doubling the pair capacity (and explicit tail sizes) while
     the result flags overflow. Returns (result, options) so callers keep
     the grown sizes."""
     res = render_once(options)
     while bool(res.overflow):
-        options = options.replace(
-            capacity=options.capacity * 2,
-            tail_cap=(options.tail_cap * 2
-                      if options.tail_cap is not None else None),
-            big_cap=(options.big_cap * 2
-                     if options.big_cap is not None else None))
-        print(f"  pair overflow: growing capacity to {options.capacity}")
+        options = grown(options)
         res = render_once(options)
     return res, options
 

@@ -168,7 +168,8 @@ class TorchHubYoloDetector:
 @dataclass
 class YoloDetector:
     """YOLOv5 perception (sim/yolo.py) on `device` (CUDA unless given),
-    from `weights_path` (a YOLOv5 checkpoint) or randomly initialized."""
+    from `weights_path` (a YOLOv5 checkpoint) or randomly initialized.
+    `detect` records the span `detector.yolo` under a profiler."""
 
     weights_path: Optional[str] = None
     size: tuple = (384, 640)
@@ -189,9 +190,10 @@ class YoloDetector:
 
     def detect(self, image_chw, camera) -> List[np.ndarray]:
         self._ensure()
-        H, W = image_chw.shape[1:]
-        det = self._det(np.clip(image_chw, 0, 1).transpose(1, 2, 0))
-        return normalized_boxes(det, H, W)
+        with span("detector.yolo"):
+            H, W = image_chw.shape[1:]
+            det = self._det(np.clip(image_chw, 0, 1).transpose(1, 2, 0))
+            return normalized_boxes(det, H, W)
 
 
 def normalized_boxes(det: np.ndarray, H: int, W: int) -> List[np.ndarray]:

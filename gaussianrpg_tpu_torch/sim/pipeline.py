@@ -9,6 +9,11 @@ the host reads from the full [A, 5 + nc] prediction (~5 MB at 384x640) to
 runs greedy NMS over <= K boxes and the AEB/dynamics arithmetic. The loop
 is sequential (this frame's brake moves the next frame's camera), so its
 rate is 1 / (device time + the copy's round trip).
+
+`FusedPerception` is the loop's perceive_fn on such a step
+(`apps.simulate.loop_setup`): the host tail, and a frame rendered again
+at a grown pair capacity when its render overflowed (counter `regrows`,
+span `pipeline.regrow`).
 """
 from __future__ import annotations
 
@@ -18,9 +23,14 @@ import numpy as np
 import torch
 
 from ..utils.spans import span
+from .detector import normalized_boxes
 from .yolo import (COCO_VEHICLE_PERSON, forward as yolo_forward,
                    letterbox_geometry, letterbox_tensor, nms_boxes,
                    scale_coords, xywh_to_xyxy)
+
+# frames whose device step ran again because the render's pair capacity
+# overflowed (`FusedPerception`)
+regrows = 0
 
 
 def letterbox_device(img_chw: torch.Tensor, out_hw: tuple[int, int],
@@ -137,3 +147,36 @@ def finish_detections(cand: np.ndarray, gain: float, pad: tuple,
         if det.shape[0]:
             det[:, :4] = scale_coords(det[:, :4], gain, pad, orig_hw)
         return det
+
+
+class FusedPerception:
+    """The closed loop's `perceive_fn` on a fused step whose render can
+    overflow its pair capacity: camera -> normalized (cx, cy, w, h) boxes
+    after the host tail (`finish_detections`, `normalized_boxes`).
+
+    Perception never reads a render whose pairs overflowed. Once the
+    frame's candidates are on the host (the stream is then idle),
+    `overflowed()` reads the render's flag, one small copy; while it is
+    set, `grow()` enlarges the render's capacity and the frame's device
+    step runs again inside the span `pipeline.regrow`, each time counted
+    in `regrows`. `candidates` holds the last frame's [K, 6] host
+    candidates, those the boxes came from."""
+
+    def __init__(self, step, gain, pad, image_hw, overflowed, grow):
+        self.step = step
+        self.gain, self.pad = gain, pad
+        self.image_hw = image_hw
+        self.overflowed, self.grow = overflowed, grow
+        self.candidates = None
+
+    def __call__(self, camera) -> list:
+        global regrows
+        cand = self.step(camera)
+        while self.overflowed():
+            self.grow()
+            regrows += 1
+            with span("pipeline.regrow"):
+                cand = self.step(camera)
+        self.candidates = cand
+        det = finish_detections(cand, self.gain, self.pad, self.image_hw)
+        return normalized_boxes(det, *self.image_hw)

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..utils.device import resolve_device
+from ..utils.spans import span
 
 # yolov5 v6.0 graph: (module, from, args); base channels before the width
 # multiple, C3 repeats before the depth multiple
@@ -526,7 +527,10 @@ def load_torch_checkpoint(path: str, num_classes: int = 80, device=None):
 class YoloDetector:
     """YOLOv5 detector: image [H, W, 3] -> [M, 6] xyxy/conf/cls boxes in
     original-image pixels. Letterbox and NMS on the host, the graph on
-    `device` (CUDA unless given)."""
+    `device` (CUDA unless given). Under a profiler the stages record the
+    spans `detector.letterbox` (with the copy to the device),
+    `detector.forward` (with the predictions' copy back) and
+    `detector.nms`."""
 
     def __init__(self, spec=None, params=None, size=(384, 640),
                  conf_thres=0.25, iou_thres=0.45,
@@ -545,13 +549,22 @@ class YoloDetector:
         spec, params = load_torch_checkpoint(path, device=device)
         return cls(spec=spec, params=params, device=device, **kw)
 
+    def predict(self, image: np.ndarray):
+        """image [H, W, 3] -> (decoded predictions [A, 5 + nc] on the host,
+        letterbox gain, pad)."""
+        with span("detector.letterbox"):
+            boxed, gain, pad = letterbox(image, self.size)
+            x = torch.from_numpy(boxed).to(self.device)[None]
+        with span("detector.forward"):
+            pred = forward(self.spec, self.params, x)[0].cpu().numpy()
+        return pred, gain, pad
+
     def __call__(self, image: np.ndarray) -> np.ndarray:
         h, w = image.shape[:2]
-        boxed, gain, pad = letterbox(image, self.size)
-        x = torch.from_numpy(boxed).to(self.device)[None]
-        pred = forward(self.spec, self.params, x)[0].cpu().numpy()
-        det = non_max_suppression(pred, self.conf_thres, self.iou_thres,
-                                  self.classes)
-        if det.shape[0]:
-            det[:, :4] = scale_coords(det[:, :4], gain, pad, (h, w))
-        return det
+        pred, gain, pad = self.predict(image)
+        with span("detector.nms"):
+            det = non_max_suppression(pred, self.conf_thres,
+                                      self.iou_thres, self.classes)
+            if det.shape[0]:
+                det[:, :4] = scale_coords(det[:, :4], gain, pad, (h, w))
+            return det
