@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, one JSON line each (any failure ends the run with exit code 1):
-  build   compile the seven CUDA sources of gaussianrpg_tpu_torch/csrc
+  build   compile the eight CUDA sources of gaussianrpg_tpu_torch/csrc
           (one nvcc per source, in parallel) into build/kernels;
   kernel  hold each kernel against its plain PyTorch version on the card
           at the main path's shapes: the blend forward (kernel B) and the
@@ -52,16 +52,22 @@ Phases, one JSON line each (any failure ends the run with exit code 1):
           background's parameters and the two hooks), and derive-gm
           against ridden-gm gradients on the card, bit for bit;
   frame   one frozen-scene frame through `rasterize` at 64x32 (emission
-          binning) and 16x16 (marker binning), each with two kernel A
-          fills, one kernel B launch and one row gather (two on the
-          marker path: the depth take too); per-frame ms, pair counts,
-          launch counts, all of replays of the render's CUDA graph, whose
-          counted launches must equal kernel A's, B's and the gather's
-          records in a profiler trace (`CountedTrace`); then, on each
-          tiling's own field table and row ids (an eager frame), the row
-          gathers (the depth take, a permutation of all N rows, and the
-          pair gather with its -1 padding) against their plain version
-          bit for bit, each timed beside it and `index_select`;
+          binning) and 16x16 (marker binning), each with one primitive
+          stage launch, two kernel A fills, one kernel B launch and one
+          row gather (two on the marker path: the depth take too);
+          per-frame ms, pair counts, launch counts, all of replays of the
+          render's CUDA graph, whose counted launches must equal the
+          primitive stage's, kernel A's, B's and the gather's records in
+          a profiler trace (`CountedTrace`); then, on each tiling's own
+          field table and row ids (an eager frame), the row gathers (the
+          depth take, a permutation of all N rows, and the pair gather
+          with its -1 padding) against their plain version bit for bit,
+          each timed beside it and `index_select`; and the primitive
+          stage kernel (`csrc/primitive_fields.cu`) against the PyTorch
+          composition bit for bit at both tilings and on the street
+          cell's slot count (the frozen scene's rows, then inactive slots
+          padded as `init_from_points` pads them, masked out), each timed
+          beside the composition with its byte bound;
   train_frame  the bench train step (`rasterize` with both hooks, loss
           sum(color^2) + sum(depth^2)) on the frozen scene at both tilings:
           step ms, launches of kernels A, B and C, the pair-gather
@@ -188,7 +194,8 @@ Phases, one JSON line each (any failure ends the run with exit code 1):
           on 1 rank (NCCL) and on 2 gloo ranks sharing the card
           (`phase_mesh`).
 The line before the last is the kernel table ({"kernels": [...]}: kernels
-A, B and C and the row gather with their launches summed over the closed
+A, B and C, the row gather and the primitive stage kernel (its time on
+the street cell's slot count) with their launches summed over the closed
 loop, perception (c)'s and (d)'s loops, train_frame, train, waymo, eval,
 ros2, prep and mesh runs (waymo's, eval's, prep's and mesh's counted in
 their subprocesses too; a replay of the render's CUDA graph counts the
@@ -1030,9 +1037,11 @@ def phase_small_train(torch):
 def phase_frame(torch, kout):
     """One frozen-scene frame through `rasterize` at both tilings, timed
     and counted once the render's CUDA graph is captured: five replays;
-    then the frame's row gathers on its own inputs (`check_gathers`).
-    Returns the gather's record for the kernel table: 16x16's pair
-    gather timed, the error the largest over both tilings."""
+    then the frame's row gathers on its own inputs (`check_gathers`) and
+    its primitive stage (`check_fields`, also on the street cell's slot
+    count). Returns the gather's record for the kernel table (16x16's
+    pair gather timed, the error the largest over both tilings) and the
+    primitive stage kernel's (timed on the street slot count)."""
     from gaussianrpg_tpu_torch.ops import binning
     from gaussianrpg_tpu_torch.ops.rasterize import rasterize
 
@@ -1081,7 +1090,8 @@ def phase_frame(torch, kout):
         ok = (not bool(out.overflow) and finite
               and tuple(out.color.shape) == (3, H, W)
               and launches == {"blend_fwd": 5, "cummax": 5 * 2,
-                               "gather_rows": 5 * gathers}
+                               "gather_rows": 5 * gathers,
+                               "primitive_fields": 5}
               and traced["ok"] and traced["counted"] == launches
               and traced["graph_counts"] == dict(captures=0, eager=0,
                                                  replays=5))
@@ -1093,6 +1103,9 @@ def phase_frame(torch, kout):
         colors_out[(tx, ty)] = out.color
         gathers_rec[(tx, ty)] = check_gathers(
             torch, recorded_gathers(frame), f"{tx}x{ty}", gathers)
+        check_fields(torch, kout["scene"], (tx, ty))
+    fields_rec = check_fields(torch, kout["scene"], (16, 16),
+                              slots=STREET_SLOTS)
     diff = (colors_out[(64, 32)] - colors_out[(16, 16)]).abs()
     # the tilings differ only by sub-1/255 alpha tails (rect-based
     # candidate sets); their mean must agree closely
@@ -1103,7 +1116,79 @@ def phase_frame(torch, kout):
     check(ok, "frame", "tilings disagree")
     return dict(gathers_rec[(16, 16)]["pair_gather"], max_abs_err=max(
         g["max_abs_err"] for rec in gathers_rec.values()
-        for g in rec.values()))
+        for g in rec.values())), fields_rec
+
+
+# the street cell's slots (4,194,304 background, 16,384 actor and the
+# sky's); phase frame pads the frozen scene's 600,000 rows to this count
+STREET_SLOTS = 4_325_376
+
+
+def check_fields(torch, scene, tile, slots=None):
+    """The primitive stage of a frame on its two routes: the kernel
+    (`ops/fields.py`) against the PyTorch composition
+    (`rasterize.primitive_fields_plain`), every output bit for bit, each
+    timed (the composition's ~350 launches one call at a time,
+    `device_ms_each`), with the kernel's byte bound: a row reads its mean,
+    scale, rotation, opacity, colour (and mask byte) once and writes its
+    field row, rects, radius, depth and mean once. With `slots`, the
+    scene's rows come first and inactive slots follow, padded as the
+    street scene pads them (origin, scale e^-20, identity rotation,
+    opacity sigmoid(-20)) and masked out."""
+    from gaussianrpg_tpu_torch.ops import fields as F
+    from gaussianrpg_tpu_torch.ops import rasterize as R
+    from gaussianrpg_tpu_torch.tools._timing import device_ms, device_ms_each
+
+    cam, (means, opac, colors, scales, quats), H, W = scene
+    opac = opac.reshape(-1)
+    mask = None
+    if slots is not None:
+        n, pad = means.shape[0], slots - means.shape[0]
+
+        def padded(x, fill):
+            return torch.cat([x, x.new_full((pad,) + x.shape[1:], fill)])
+
+        quats = padded(quats, 0.0)
+        quats[n:, 0] = 1.0
+        means, colors = padded(means, 0.0), padded(colors, 0.5)
+        scales = padded(scales, math.exp(-20.0))
+        opac = padded(opac, 1.0 / (1.0 + math.exp(20.0)))
+        mask = torch.arange(slots, device=means.device) < n
+    kw = dict(camera=cam, colors=colors, semantics=None, scales=scales,
+              rotations=quats, cov3d_precomp=None, scale_modifier=1.0,
+              active_mask=mask, tile_x=tile[0], tile_y=tile[1],
+              tight_rect=True)
+
+    def kernel():
+        return F.primitive_fields(means, opac, **kw)
+
+    def plain():
+        return R.primitive_fields_plain(means, opac, means2d_offset=None,
+                                        absgrad_sink=None, **kw)
+
+    with torch.no_grad():
+        got, ref = kernel(), plain()
+        exact = all(torch.equal(
+            a.view(torch.int32) if a.is_floating_point() else a,
+            b.view(torch.int32) if b.is_floating_point() else b)
+            for a, b in zip(got, ref))
+        rows, nf = got[0].shape
+        read = 12 + 12 + 16 + 4 + 12 + (1 if mask is not None else 0)
+        b_ms, b_by = bound(rows * (read + 4 * nf + 16 + 4 + 4 + 8), 0)
+        rec = dict(rows=rows, live=means.shape[0] if mask is None
+                   else int(mask.sum()), nf=nf,
+                   visible=int((ref[3] > 0).sum()), exact=exact,
+                   max_abs_err=0.0 if exact else float(
+                       (got[0] - ref[0]).abs().max()),
+                   ms=device_ms(kernel, reps=10),
+                   plain_ms=device_ms_each(plain), bound_ms=b_ms,
+                   bound_by=b_by)
+    label = f"{tile[0]}x{tile[1]}" + (f", {slots} slots" if slots else "")
+    emit(dict(phase="frame", kernel="primitive_fields", tile=label,
+              tolerance="bit for bit", **rec, ok=exact))
+    check(exact, "frame", f"{label}: the primitive stage kernel disagrees "
+          "with the composition")
+    return rec
 
 
 def recorded_gathers(run):
@@ -1174,7 +1259,9 @@ def check_gathers(torch, calls, tile, expected):
 
 # the main path's kernels by their names in the kernel table, each with
 # its host launch counter; the train step launches all but the row gather
-COUNTED = ("blend_fwd", "cummax", "blend_bwd", "gather_rows")
+# and the primitive stage kernel
+COUNTED = ("blend_fwd", "cummax", "blend_bwd", "gather_rows",
+           "primitive_fields")
 TRAIN_COUNTED = ("blend_fwd", "cummax", "blend_bwd")
 
 
@@ -1183,23 +1270,25 @@ def zero_counts():
 
 
 def launch_counts():
-    from gaussianrpg_tpu_torch.ops import blend, gather, scan
+    from gaussianrpg_tpu_torch.ops import blend, fields, gather, scan
 
     return {"blend_fwd": blend.launches, "cummax": scan.launches,
-            "blend_bwd": blend.bwd_launches, "gather_rows": gather.launches}
+            "blend_bwd": blend.bwd_launches, "gather_rows": gather.launches,
+            "primitive_fields": fields.launches}
 
 
 def reset_counts():
-    from gaussianrpg_tpu_torch.ops import blend, gather, scan
+    from gaussianrpg_tpu_torch.ops import blend, fields, gather, scan
 
     blend.launches = blend.bwd_launches = scan.launches = 0
-    gather.launches = 0
+    gather.launches = fields.launches = 0
 
 
 class CountedTrace:
-    """Kernels B's and A's and the row gather's records in a profiler
-    trace against what their launch counters (`blend.launches`,
-    `scan.launches`, `gather.launches`) and `rasterize.graph_counts`
+    """Kernels B's and A's, the row gather's and the primitive stage
+    kernel's records in a profiler trace against what their launch
+    counters (`blend.launches`, `scan.launches`, `gather.launches`,
+    `fields.launches`) and `rasterize.graph_counts`
     advanced by over the same stretch. A replay of the render's CUDA graph
     launches no kernel from the host: the counters advance by what its
     capture ran, and this holds them to the kernels the card ran. The
@@ -1211,7 +1300,8 @@ class CountedTrace:
     counts, and `ok`, that they agree."""
 
     NAMES = {"blend_fwd": "blend_fwd", "cummax": "cummax_lookback",
-             "gather_rows": "gather_rows"}
+             "gather_rows": "gather_rows",
+             "primitive_fields": "primitive_fields"}
 
     def __init__(self, torch):
         from torch.profiler import ProfilerActivity, profile, schedule
@@ -1260,7 +1350,8 @@ class CountedTrace:
         self.result = dict(records=records, counted=counted,
                            graph_counts=graphs,
                            ok=records == counted and counted["cummax"] > 0
-                           and counted["gather_rows"] > 0)
+                           and counted["gather_rows"] > 0
+                           and counted["primitive_fields"] > 0)
         return False
 
 
@@ -2027,13 +2118,14 @@ if out:  # one file a rank: ranks sharing a pipe can split each other's lines
                  os.O_WRONLY | os.O_CREAT | os.O_TRUNC)
     os.dup2(fd, 1)
     os.close(fd)
-from gaussianrpg_tpu_torch.ops import blend, gather, scan
+from gaussianrpg_tpu_torch.ops import blend, fields, gather, scan
 sys.argv = sys.argv[1:]
 runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
 print("launches " + json.dumps({"blend_fwd": blend.launches,
                                  "cummax": scan.launches,
                                  "blend_bwd": blend.bwd_launches,
-                                 "gather_rows": gather.launches}),
+                                 "gather_rows": gather.launches,
+                                 "primitive_fields": fields.launches}),
       flush=True)
 """
 
@@ -4046,8 +4138,8 @@ def main():
     try:
         t0 = time.time()
         cuda_build.build_all(["cummax", "blend_fwd", "blend_bwd",
-                              "gather_rows", "blend_floor", "step_floor",
-                              "mm_orient"])
+                              "gather_rows", "primitive_fields",
+                              "blend_floor", "step_floor", "mm_orient"])
         ptxas = {name: [ln.strip() for ln in log.splitlines()
                         if "registers" in ln or "spill" in ln]
                  for name, log in cuda_build.build_logs.items()}
@@ -4057,7 +4149,7 @@ def main():
         tools = phase_tools(torch)
         phase_small(torch)
         phase_small_train(torch)
-        g = phase_frame(torch, kout)
+        g, fld = phase_frame(torch, kout)
         runs = [phase_train_frame(torch, kout)]
         del kout["scene"]
         torch.cuda.empty_cache()
@@ -4122,6 +4214,13 @@ def main():
                             tools["gather_rows"]["max_abs_err"]),
          "ms": g["ms"], "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
          "bound_by": g["bound_by"], "library_ms": g["library_ms"]},
+        {"name": "primitive_fields", "route": "cuda",
+         "source": "gaussianrpg_tpu_torch/csrc/primitive_fields.cu",
+         "replaces": None, "launches": launches["primitive_fields"],
+         "max_abs_err": fld["max_abs_err"], "rows": fld["rows"],
+         "ms": fld["ms"], "plain_ms": fld["plain_ms"],
+         "bound_ms": fld["bound_ms"], "bound_by": fld["bound_by"],
+         "library_ms": None},
     ] + [tools[name] for name, _, _, _, _ in TOOL_KERNELS
          if name != "gather_rows"]})
     print(smi, flush=True)

@@ -3,8 +3,11 @@
 Counterpart of `gaussianrpg_tpu/ops/projection.py` (itself the CUDA
 `preprocessCUDA`, `forward.cu:155-256`): the same constants, clamps and
 evaluation order, so integer outputs (radii, tile rects) come out equal and
-floats agree to rounding. Plain tensor code: it is elementwise per Gaussian
-and needs no hand-written kernel.
+floats agree to rounding. Plain tensor code, the route of training and of
+the CPU: an eval call on the card runs the whole primitive stage, this
+preprocess included, as one hand-written kernel (`csrc/primitive_fields.cu`
+through ops/fields.py), which repeats this arithmetic in its order and gives
+the same bits; `ops/oracle.py` calls `preprocess` directly.
 
 Matrix conventions: `viewmatrix` / `projmatrix` are column-vector matrices
 (x_out = M @ [x, 1]).

@@ -28,7 +28,7 @@ import dataclasses
 import torch
 
 from ..utils.spans import span
-from . import binning, blend, gather, scan
+from . import binning, blend, fields, gather, scan
 
 # the camera's tensors the path reads (copied on each replay) and the
 # fields that shape its work (keyed); the path reads none of the rest (K,
@@ -42,7 +42,7 @@ SWITCHES = ((binning, "EMIT_PAIRS"), (binning, "EMIT_K"),
             (binning, "SUB_CHUNKS"))
 # host counters of the kernels the path launches
 COUNTERS = ((blend, "launches"), (scan, "launches"), (scan, "elements"),
-            (gather, "launches"))
+            (gather, "launches"), (fields, "launches"))
 
 graph_counts = {"captures": 0, "replays": 0, "eager": 0}
 

@@ -10,11 +10,12 @@ statistic, riding the F_RADIUS column). In train mode every pair gather
 goes through an autograd Function whose backward is the sort-free segment
 sum (`_PairGather`, `_PairGatherDerive`, `_PermTake`) instead of the
 `index_add_` scatter that autograd of `index_select` would use; the
-preprocess, SH and field assembly are differentiated by autograd. In eval
-mode both row takes of the field table, the marker path's depth-order
-take and the pair gather, run the hand-written row gather
-`csrc/gather_rows.cu` (ops/gather.py), which writes the padding slots'
-rows as zeros.
+preprocess, SH and field assembly are differentiated by autograd. On the
+card an eval call's primitive stage is one hand-written kernel,
+`csrc/primitive_fields.cu` (ops/fields.py), and both row takes of the
+field table, the marker path's depth-order take and the pair gather, run
+the hand-written row gather `csrc/gather_rows.cu` (ops/gather.py), which
+writes the padding slots' rows as zeros.
 
 Under a profiler the stages record the spans `raster.fields`
 (`rasterize`'s primitive stage), `raster.sort` (depth order), `raster.bin`
@@ -33,7 +34,7 @@ import torch
 from ..parallel.collectives import Axis, gather_field_rows
 from ..utils.device import on_device, resolve_device
 from ..utils.spans import span
-from . import binning, gather, raster_graph
+from . import binning, fields, gather, raster_graph
 from .raster_graph import eager, graph_counts  # noqa: F401  (re-exported)
 from .blend import NF_BASE, blend_pairs
 from .projection import TILE_X, TILE_Y, preprocess, transform_point_4x3
@@ -249,24 +250,57 @@ def primitive_fields(
     """O(N) per-primitive stage: preprocess + SH + field-column assembly.
     The hooks (zeros) enter the mean columns (`means2d_offset`, scaled to
     pixels by the physical image size) and the radius column
-    (`absgrad_sink`, whose value the blend never reads)."""
-    H, W = camera.height, camera.width
-    n = means3d.shape[0]
+    (`absgrad_sink`, whose value the blend never reads).
+
+    Two routes by what the call holds, sharing no logic: on the card, a
+    call that autograd does not record and that passes neither hook runs
+    the hand-written kernel (ops/fields.py); every other call, training
+    and every CPU tensor, the PyTorch composition
+    (`primitive_fields_plain`). Both give the same bits. Spherical
+    harmonics are evaluated first on either route."""
     opacities = opacities.reshape(-1)
     scales, rotations = _default_geometry(means3d, scales, rotations)
-    pre = preprocess(
-        means3d, scales, rotations, camera.viewmatrix, camera.projmatrix,
-        W, H, camera.tan_fovx, camera.tan_fovy, scale_modifier,
-        cov3d_precomp, camera.lim_tan_fovx, camera.lim_tan_fovy,
-        tile_x=tile_x, tile_y=tile_y,
-        opacities=opacities if tight_rect else None)
-
     if colors is None:
         assert shs is not None
         dirs = means3d - camera.cam_center
         dirs = dirs * torch.rsqrt(torch.clamp(
             torch.sum(dirs * dirs, -1, keepdim=True), min=1e-24))
         colors, _ = sh_to_rgb_clamped(sh_degree, shs, dirs)
+    if semantics is not None and semantics.shape[-1] == 0:
+        semantics = None
+    kw = dict(camera=camera, colors=colors, semantics=semantics,
+              scales=scales, rotations=rotations,
+              cov3d_precomp=cov3d_precomp, scale_modifier=scale_modifier,
+              active_mask=active_mask, tile_x=tile_x, tile_y=tile_y,
+              tight_rect=tight_rect)
+    recorded = (means3d, opacities, colors, semantics, scales, rotations,
+                cov3d_precomp, camera.viewmatrix, camera.projmatrix)
+    if fields.engages(means3d, recorded, (means2d_offset, absgrad_sink)):
+        out = fields.primitive_fields(means3d, opacities, **kw)
+    else:
+        out = primitive_fields_plain(means3d, opacities,
+                                     means2d_offset=means2d_offset,
+                                     absgrad_sink=absgrad_sink, **kw)
+    return FieldSet(*out, s_ch=0 if semantics is None
+                    else semantics.shape[-1], tile_x=tile_x, tile_y=tile_y)
+
+
+def primitive_fields_plain(means3d, opacities, *, camera, colors,
+                           semantics, scales, rotations, cov3d_precomp,
+                           scale_modifier, means2d_offset, absgrad_sink,
+                           active_mask, tile_x, tile_y, tight_rect):
+    """The primitive stage as a PyTorch composition (the route of every
+    call but a card's eval call; see `primitive_fields`): (fields,
+    rect_min, rect_max, radii, depths, means2d) of a FieldSet, from
+    `opacities` [N], `colors` [N, 3] and `semantics` [N, S] or None."""
+    H, W = camera.height, camera.width
+    n = means3d.shape[0]
+    pre = preprocess(
+        means3d, scales, rotations, camera.viewmatrix, camera.projmatrix,
+        W, H, camera.tan_fovx, camera.tan_fovy, scale_modifier,
+        cov3d_precomp, camera.lim_tan_fovx, camera.lim_tan_fovy,
+        tile_x=tile_x, tile_y=tile_y,
+        opacities=opacities if tight_rect else None)
 
     means2d = pre.means2d
     if means2d_offset is not None:
@@ -279,12 +313,8 @@ def primitive_fields(
     if active_mask is not None:
         radii = torch.where(active_mask, radii, torch.zeros_like(radii))
 
-    s_ch = 0
-    sem_list = []
-    if semantics is not None and semantics.shape[-1] > 0:
-        s_ch = semantics.shape[-1]
-        sem_list = [semantics]
-
+    s_ch = 0 if semantics is None else semantics.shape[-1]
+    sem_list = [] if semantics is None else [semantics]
     radius_col = radii.to(torch.float32)
     if absgrad_sink is not None:
         radius_col = radius_col + absgrad_sink
@@ -298,10 +328,8 @@ def primitive_fields(
             [fields, torch.zeros((n, nf_cols - fields.shape[1]),
                                  dtype=fields.dtype, device=fields.device)],
             dim=1)
-    return FieldSet(fields=fields, rect_min=pre.rect_min,
-                    rect_max=pre.rect_max, radii=radii, depths=pre.depths,
-                    means2d=pre.means2d, s_ch=s_ch, tile_x=tile_x,
-                    tile_y=tile_y)
+    return (fields, pre.rect_min, pre.rect_max, radii, pre.depths,
+            pre.means2d)
 
 
 def pair_rows(

@@ -31,11 +31,12 @@ def test_two_ranks_lines_stay_whole(chip_smoke, tmp_path, monkeypatch):
     them into one line)."""
     (tmp_path / "noisy_ranks.py").write_text(textwrap.dedent(f"""
         import os
-        from gaussianrpg_tpu_torch.ops import blend, gather, scan
+        from gaussianrpg_tpu_torch.ops import blend, fields, gather, scan
         rank = int(os.environ["RANK"])
         blend.launches += 1 + rank
         scan.launches += 10
         gather.launches += 2
+        fields.launches += 3
         for i in range({LINES}):
             print("rank", rank, "line", i, "x" * (i % 37))
         """))
@@ -50,4 +51,4 @@ def test_two_ranks_lines_stay_whole(chip_smoke, tmp_path, monkeypatch):
     got = [ln for ln in lines if re.match(r"rank \d", ln)]
     assert [ln.rstrip() for ln in got] == [ln.rstrip() for ln in expected]
     assert launches == {"blend_fwd": 3, "cummax": 20, "blend_bwd": 0,
-                        "gather_rows": 4}
+                        "gather_rows": 4, "primitive_fields": 6}

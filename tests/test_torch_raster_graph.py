@@ -28,7 +28,7 @@ import numpy as np
 import pytest
 import torch
 
-from gaussianrpg_tpu_torch.ops import (binning, blend, gather,
+from gaussianrpg_tpu_torch.ops import (binning, blend, fields, gather,
                                        raster_graph, scan)
 from gaussianrpg_tpu_torch.ops import rasterize as R
 from gaussianrpg_tpu_torch.parallel.collectives import Axis
@@ -358,19 +358,20 @@ class _Graph:
 
 def test_replay_advances_the_host_counters_by_the_capture():
     """A replay adds what its capture ran to kernel B's and A's launch
-    counters, A's elements and the row gather's launches."""
+    counters, A's elements, the row gather's launches and the primitive
+    stage kernel's launches."""
     z = torch.zeros(1, 4, 4)
     out = R.RasterOut(color=z.expand(3, 4, 4), depth=z, alpha=z,
                       semantic=torch.zeros(0, 4, 4),
                       radii=torch.zeros(2, dtype=torch.int32),
                       means2d=torch.zeros(2, 2), overflow=torch.tensor(False),
                       n_pairs=torch.tensor(3))
-    by = (1, 2, 3, 4)
+    by = (1, 2, 3, 4, 5)
     held = raster_graph._Held("k", _Graph(), {}, {}, out, by)
 
     def counters():
         return (blend.launches, scan.launches, scan.elements,
-                gather.launches)
+                gather.launches, fields.launches)
 
     assert len(raster_graph.COUNTERS) == len(by)
     before = counters()
